@@ -1,4 +1,4 @@
-"""omfs4d — TPU-native 4D oral-maxillofacial-surgery planning & prediction framework.
+"""omfs4d — 4D oral-maxillofacial-surgery planning & prediction framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 cwlachap/OMFS-4D-Video-Gen reference platform:
@@ -10,10 +10,11 @@ cwlachap/OMFS-4D-Video-Gen reference platform:
     mesh-bound 3D Gaussian Splatting avatar training -> surgical-plan FLAME
     perturbation -> 4D post-op prediction video.  (ref: 02_Visual_Engine/)
 
-Everything heavy runs on a `jax.sharding.Mesh` of TPU devices: the
-differentiable gaussian rasterizer is a Pallas kernel, FLAME LBS is batched
-matmul on the MXU, frames are data-parallel over ICI, and the tile grid is
-spatially sharded.  All IO (DICOM, NIfTI, PLY, video) is first-party.
+Everything heavy runs on a `jax.sharding.Mesh` of NVIDIA GPUs: the
+differentiable gaussian rasterizer composites in a Pallas (Triton) kernel,
+FLAME LBS is batched products, frames are data-parallel, and the tile grid
+is spatially sharded.  Scientific IO (DICOM, NIfTI, PLY, PNG) is
+first-party.
 """
 
 __version__ = "0.1.0"

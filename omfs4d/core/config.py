@@ -131,7 +131,7 @@ class TrainConfig:
     prune_opacity: float = 5e-3
     prune_scale: float = 8.0        # prune gaussians larger than this (in triangle units)
     # prune gaussians that received ZERO gradient over a whole densify
-    # window: under the depth-sorted per-tile K cap (the TPU analogue of
+    # window: under the depth-sorted per-tile K cap (this renderer's analogue of
     # CUDA's per-pixel early termination) such gaussians can never recover
     # — no gradient can shrink/fade them — while still inflating the
     # binning pair budget and crowding supervised gaussians out of the

@@ -1,11 +1,13 @@
-"""Video decode/encode (ffmpeg when present, OpenCV otherwise).
+"""Frame images, and video decode/encode.
 
-Replaces the reference's ffmpeg subprocess usage for frame extraction
-(ref: preprocess_video.py:45-54) and H.264 stitching
-(ref: render_surgery.py:412-449).  Stitching prefers a real ffmpeg binary
-(libx264 yuv420p crf18 — the reference's exact encode contract,
-render_surgery.py:433-441) and falls back through cv2 codecs:
-avc1 -> mp4v -> MJPG.
+Frames and masks are PNGs read and written by the first-party codec in
+omfs4d.io.png.  Video containers are host I/O on optional dependencies:
+decoding (`probe_video`, `extract_frames`) needs OpenCV, and stitching
+prefers a real ffmpeg binary (libx264 yuv420p crf18 — the reference's exact
+encode contract, render_surgery.py:433-441) and falls back through cv2
+codecs: avc1 -> mp4v -> MJPG.  Replaces the reference's ffmpeg subprocess
+usage for frame extraction (ref: preprocess_video.py:45-54) and H.264
+stitching (ref: render_surgery.py:412-449).
 """
 
 from __future__ import annotations
@@ -16,15 +18,21 @@ from pathlib import Path
 
 import numpy as np
 
-try:
-    import cv2
-    _HAS_CV2 = True
-except Exception:                                  # pragma: no cover
-    cv2 = None
-    _HAS_CV2 = False
+from omfs4d.io.png import SIGNATURE, decode_png, write_png
+
+
+def _cv2(what: str):
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            f"{what} needs OpenCV (the opencv-python package), which is not "
+            "installed") from e
+    return cv2
 
 
 def probe_video(path: str | Path) -> dict:
+    cv2 = _cv2("reading a video container")
     cap = cv2.VideoCapture(str(path))
     try:
         return {
@@ -46,6 +54,7 @@ def extract_frames(
 ) -> list[Path]:
     """Decode a video into numbered PNG frames (RGB), optionally downscaled
     so min(H, W) ~ target_size (ref downsample policy: preprocess_video.py:452-463)."""
+    cv2 = _cv2("decoding video frames")
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
     cap = cv2.VideoCapture(str(video_path))
@@ -63,7 +72,7 @@ def extract_frames(
                     frame = cv2.resize(frame, (int(round(w * scale)), int(round(h * scale))),
                                        interpolation=cv2.INTER_AREA)
             p = out / f"{kept:05d}.png"
-            cv2.imwrite(str(p), frame)
+            write_png(p, frame[..., ::-1])           # cv2 decodes BGR
             paths.append(p)
             kept += 1
             if max_frames and kept >= max_frames:
@@ -74,22 +83,33 @@ def extract_frames(
 
 
 def read_image(path: str | Path) -> np.ndarray:
-    """Read an image as (H, W, 3) uint8 RGB."""
-    img = cv2.imread(str(path), cv2.IMREAD_COLOR)
-    if img is None:
+    """Read an image as (H, W, 3) uint8 RGB (grey is replicated, alpha
+    dropped).  PNGs go through the first-party codec; other formats need
+    OpenCV."""
+    path = Path(path)
+    if not path.is_file():
         raise FileNotFoundError(f"cannot read image: {path}")
-    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    data = path.read_bytes()
+    if data[:8] != SIGNATURE:
+        cv2 = _cv2(f"reading {path.suffix or 'non-PNG'} images")
+        img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+        if img is None:
+            raise ValueError(f"cannot decode image: {path}")
+        return img[..., ::-1].copy()
+    img = decode_png(data)
+    if img.shape[2] < 3:
+        return np.repeat(img[..., :1], 3, axis=2)
+    return img[..., :3]
 
 
 def write_image(path: str | Path, rgb: np.ndarray) -> None:
+    """Write an (H, W, 3) RGB or (H, W) grey image as PNG; float input in
+    [0, 1] is scaled to 8 bits."""
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     arr = np.asarray(rgb)
     if arr.dtype != np.uint8:
         arr = np.clip(arr * 255.0 if arr.max() <= 1.5 else arr, 0, 255).astype(np.uint8)
-    if arr.ndim == 2:
-        cv2.imwrite(str(path), arr)
-    else:
-        cv2.imwrite(str(path), cv2.cvtColor(arr, cv2.COLOR_RGB2BGR))
+    write_png(path, arr)
 
 
 def find_ffmpeg() -> str | None:
@@ -102,6 +122,18 @@ def find_ffmpeg() -> str | None:
         return imageio_ffmpeg.get_ffmpeg_exe()
     except Exception:
         return None
+
+
+def find_encoder() -> str | None:
+    """The video encoder `stitch_video` would use, or None if none exists."""
+    exe = find_ffmpeg()
+    if exe:
+        return f"ffmpeg ({exe})"
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        return None
+    return "opencv"
 
 
 def ffmpeg_stitch_cmd(ffmpeg_bin: str, pattern: str, output_path: str,
@@ -151,8 +183,8 @@ def stitch_video(frames_dir: str | Path, output_path: str | Path, fps: int = 30)
         _stitch_ffmpeg(frames, out_path, fps, ffmpeg_bin)
         return out_path
 
-    first = cv2.imread(str(frames[0]))
-    h, w = first.shape[:2]
+    cv2 = _cv2("stitching an MP4 without an ffmpeg binary")
+    h, w = read_image(frames[0]).shape[:2]
 
     writer = None
     for codec in ("avc1", "mp4v", "MJPG"):
@@ -166,7 +198,7 @@ def stitch_video(frames_dir: str | Path, output_path: str | Path, fps: int = 30)
         raise RuntimeError("no available video codec (tried avc1, mp4v, MJPG)")
 
     for p in frames:
-        img = cv2.imread(str(p))
+        img = np.ascontiguousarray(read_image(p)[..., ::-1])
         if img.shape[:2] != (h, w):
             img = cv2.resize(img, (w, h))
         writer.write(img)

@@ -9,7 +9,7 @@ the complete model the vendored repos provide:
              J_regressor, weights, [global, neck, jaw, eye_l, eye_r] )
         + translation
 
-All stages are batched matmuls/einsums that XLA tiles onto the MXU; the
+All stages are batched matmuls/einsums (at HIGHEST precision); the
 whole forward is jit/vmap/grad-compatible and is the inner loop of both the
 tracker (omfs4d.track) and the avatar trainer (omfs4d.train).
 
@@ -174,7 +174,7 @@ def flame_forward(model: FlameModel, params: dict, return_landmarks: bool = Fals
     n_shape = model.shapedirs_shape.shape[2]
     n_expr = model.shapedirs_expr.shape[2]
 
-    # 1. shape + expression blendshapes — (V*3, K) @ (K, B) on the MXU
+    # 1. shape + expression blendshapes — (V*3, K) @ (K, B)
     def blend(dirs, coeff):
         flat = dirs.reshape(V * 3, -1)
         k = min(flat.shape[1], coeff.shape[1])   # tracker may use fewer modes

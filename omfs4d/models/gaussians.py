@@ -84,11 +84,10 @@ def triangle_frames(verts: jnp.ndarray, faces: jnp.ndarray):
 def gather_rows(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     """`table[idx]` — plain XLA gather.
 
-    History: round 1 shipped a custom sorted-segment-reduction backward here
-    on the belief that TPU scatter-add serializes; measured on v5e with the
-    current toolchain the plain gather transpose (scatter-add) runs the
-    (1024x512, 9) cotangent in ~1 ms while the segment reduction took ~26 ms.
-    Keep this a plain gather so XLA owns the transpose.
+    History: round 1 shipped a custom sorted-segment-reduction backward
+    here; on the accelerator it was first tuned for, the plain gather
+    transpose (scatter-add) measured far faster.  Keep this a plain gather
+    so XLA owns the transpose (re-measuring on the GPU is ROADMAP A5).
     """
     return table[idx]
 
@@ -114,7 +113,7 @@ def bind_to_mesh(g: GaussianAvatar, verts: jnp.ndarray, faces: jnp.ndarray):
         Rp[:, :, 0] * mu[:, 0:1] + Rp[:, :, 1] * mu[:, 1:2]
         + Rp[:, :, 2] * mu[:, 2:3]
     )
-    # unrolled (N,3,3)@(N,3,3): batched tiny matmuls pad terribly on the MXU
+    # unrolled (N,3,3)@(N,3,3): batched tiny matmuls pad badly on a matrix unit
     Q = quat_to_matrix(g.quat_local)
     rot = jnp.stack([
         jnp.stack([
@@ -268,7 +267,7 @@ def init_gaussians_from_points(
 
     Replicates the CUDA stack's init: per-point scale from the mean distance
     to the 3 nearest neighbors (the `simple-knn` extension's job, here
-    omfs4d.ops.knn on the MXU), each point bound to its nearest canonical
+    omfs4d.ops.knn), each point bound to its nearest canonical
     FLAME triangle and expressed in that triangle's local frame.
     """
     import jax.numpy as jnp

@@ -103,8 +103,8 @@ def project_gaussians(
       pixels, in_front (N,) bool validity.
     """
     W = cam.w2c[:3, :3]
-    # HIGHEST: TPU default rounds matmul inputs to bf16, which jitters
-    # projected centers by ~0.5 px at 256^2 — a visible fidelity floor
+    # HIGHEST: a reduced-precision default (bf16 or TF32 inputs) jitters
+    # projected centers by a visible fraction of a pixel
     t = jnp.dot(means, W.T,
                 precision=jax.lax.Precision.HIGHEST) + cam.w2c[:3, 3]
     z = t[:, 2]
@@ -116,9 +116,8 @@ def project_gaussians(
     uv = jnp.stack([u, v], axis=-1)
 
     # 2D covariance = M Mᵀ with M = J W R S  (N, 2, 3).  All products are
-    # unrolled to elementwise VPU ops: XLA lowers batched 3x3 matmuls onto
-    # the MXU with catastrophic padding (measured ~7 ms at N=131k on v5e;
-    # this form is <1 ms).
+    # unrolled to elementwise ops: batched 3x3 matmuls pad badly on a
+    # matrix unit, and elementwise FMAs fuse into one XLA kernel.
     RS = rotations * scales[:, None, :]                       # (N, 3, 3)
     # rows of W @ RS: wr[i][:, k] = sum_j W[i, j] * RS[:, j, k]
     wr = [

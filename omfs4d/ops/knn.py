@@ -1,8 +1,8 @@
 """Blocked brute-force K-nearest-neighbor distances in JAX.
 
 Replaces the CUDA `simple-knn` extension GaussianAvatars uses for initial
-gaussian scales (mean distance of the 3 nearest points).  On TPU the
-(chunk, N) pairwise-distance matrix is one MXU matmul per chunk:
+gaussian scales (mean distance of the 3 nearest points).  The (chunk, N)
+pairwise-distance matrix is one matrix product per chunk:
 |x - y|^2 = |x|^2 + |y|^2 - 2 x.y, then a top-k over the row.
 """
 
@@ -30,7 +30,7 @@ def knn_mean_distance(points: jnp.ndarray, k: int = 3, chunk: int = 2048) -> jnp
 
     def body(block):
         block_pts, block_sq, block_ids = block
-        # (chunk, N) squared distances via MXU matmul
+        # (chunk, N) squared distances via one matrix product
         d2 = (
             block_sq[:, None]
             + sq[None, :n]

@@ -2,11 +2,11 @@
 
 Replaces `skimage.measure.marching_cubes` (ref: dicom_loader.py:142-146).
 
-Design choice (TPU-first): instead of the classic 256-case marching-cubes
+Design choice (vectorized): instead of the classic 256-case marching-cubes
 LUT, every cell is split into 6 tetrahedra sharing the main diagonal.  A tet
 has only 16 sign cases and emits at most 2 triangles, so the whole extraction
 is a fixed-shape, branch-free gather/select pipeline — exactly the control
-structure that vectorizes on the VPU (and in numpy on host).  The 6-tet
+structure that vectorizes (in XLA and in numpy on host).  The 6-tet
 decomposition uses matching face diagonals between neighboring cells, so the
 surface is watertight; per-tet linear gradients orient every triangle
 consistently (normals point toward decreasing field, i.e. outward for

@@ -1,7 +1,7 @@
 """Device mesh + sharding helpers.
 
 The reference has zero intra-job parallelism (single GPU per subprocess,
-ref: CUDA_VISIBLE_DEVICES=0 at app.py:195-196).  The TPU build replaces that
+ref: CUDA_VISIBLE_DEVICES=0 at app.py:195-196).  This framework replaces that
 with one `jax.sharding.Mesh` used everywhere:
 
   * ``data`` axis — frames: FLAME tracking batches the whole video's params

@@ -3,7 +3,7 @@
 This is the framework's SP/EP analogue (SURVEY.md §2.3): a frame's tile
 grid is embarrassingly parallel, so one frame can rasterize across the mesh
 by sharding the per-tile lists; the only collective is the final
-`all_gather` of tile colors over ICI.  Projection/binning stay replicated —
+`all_gather` of tile colors.  Projection/binning stay replicated —
 they are ~10% of frame time and sharding them would add a gaussian-axis
 all-to-all (planned for very large avatars).
 """
@@ -34,14 +34,15 @@ def composite_tile_sharded(
     width: int, height: int, tile: int,
     mesh: Mesh, axis: str,
     use_pallas: bool = False,
+    interpret: bool = False,
 ):
     """Composite with the tile dimension sharded over `axis` of `mesh`.
 
     Gaussian parameters are replicated; each device composites its
     contiguous slab of tiles and the image is all-gathered.  With
-    `use_pallas` each shard runs the MXU composite kernel on its local
-    slab (the kernel takes the slab's first global tile id so pixel
-    coordinates stay global).
+    `use_pallas` each shard runs the composite kernel on its local slab
+    (the kernel takes the slab's first global tile id so pixel coordinates
+    stay global); `interpret` runs it in the Pallas interpreter (tests).
     """
     n_dev = mesh.shape[axis]
     grid_w = (width + tile - 1) // tile
@@ -68,7 +69,7 @@ def composite_tile_sharded(
             base = jax.lax.axis_index(axis).astype(jnp.int32) * local_t
             return composite_lists_pallas(uv_, conic_, colors_, opacity_,
                                           lists_, counts_, tile, grid_w,
-                                          tile_base=base)
+                                          tile_base=base, interpret=interpret)
         return composite_tiles_xla(uv_, conic_, colors_, opacity_,
                                    lists_, counts_, pix_)
 
@@ -89,6 +90,7 @@ def rasterize_tile_sharded(
     max_per_tile: int = 512,
     max_tiles_per_gaussian: int = 36,
     use_pallas: bool = False,
+    interpret: bool = False,
 ):
     """Full single-frame rasterization spatially sharded over the mesh."""
     proj = project_gaussians(camera, means, rotations, scales)
@@ -100,6 +102,7 @@ def rasterize_tile_sharded(
     img, alpha = composite_tile_sharded(
         proj["uv"], proj["conic"], colors, opacity, binning,
         width, height, tile, mesh, axis, use_pallas=use_pallas,
+        interpret=interpret,
     )
     if background is None:
         background = jnp.ones((3,), jnp.float32)
@@ -118,6 +121,12 @@ def rasterize_tile_sharded(
 # exactly the single-device composite:
 #
 #     C = sum_s C_s * prod_{r<s} T_r ,   T = prod_s T_s
+#
+# Each slice bins with `exact_order` (full depth, then index): with the
+# quantized depth key, entries that tie would keep their buffer order, which
+# differs between one slice and several, and the two would composite a few
+# near-equal-depth pairs in opposite orders.  The large-window budget is a
+# fraction of each slice's buffer, so several slices spill no more than one.
 #
 # This is the framework's EP analogue (SURVEY.md §2.3: "gaussian-sharding
 # ... ppermute/all-to-all exchange to the tile-owning device").
@@ -144,6 +153,7 @@ def render_gaussian_sharded(
     slice_capacity_factor: float = 2.0,
     near: float = 0.01,
     use_pallas: bool = False,
+    interpret: bool = False,
 ):
     """Rasterize with the gaussian axis sharded over `axis` of `mesh`.
 
@@ -225,13 +235,15 @@ def render_gaussian_sharded(
             "in_front": opac > 0,
         }
         binning = bin_gaussians(proj_slice, opac, width, height, tile,
-                                max_per_tile, max_tiles_per_gaussian)
+                                max_per_tile, max_tiles_per_gaussian,
+                                exact_order=True)
         if use_pallas:
             # each device composites the FULL tile grid of its depth slice
             from omfs4d.render.pallas_kernels import composite_lists_pallas
             col_s, alp_s = composite_lists_pallas(
                 uv, conic, cols, opac,
-                binning.tile_lists, binning.tile_counts, tile, grid_w)
+                binning.tile_lists, binning.tile_counts, tile, grid_w,
+                interpret=interpret)
         else:
             col_s, alp_s = composite_tiles_xla(
                 uv, conic, cols, opac,
@@ -277,6 +289,7 @@ def avatar_loss_gaussian_sharded(
     return_aux: bool = False,
     data_axis: str | None = None,
     use_pallas: bool = False,
+    interpret: bool = False,
 ):
     """Photometric loss of a mesh-bound avatar with the GAUSSIAN AXIS
     sharded over the device mesh — the model-parallel training path.
@@ -376,12 +389,13 @@ def avatar_loss_gaussian_sharded(
         }
         binning = bin_gaussians(proj_slice, opac_r, width, height, tile,
                                 max_per_tile, max_tiles_per_gaussian,
-                                large_frac=large_frac)
+                                large_frac=large_frac, exact_order=True)
         if use_pallas:
             from omfs4d.render.pallas_kernels import composite_lists_pallas
             col_s, alp_s = composite_lists_pallas(
                 uv, conic, cols_r, opac_r,
-                binning.tile_lists, binning.tile_counts, tile, grid_w)
+                binning.tile_lists, binning.tile_counts, tile, grid_w,
+                interpret=interpret)
         else:
             col_s, alp_s = composite_tiles_xla(
                 uv, conic, cols_r, opac_r,

@@ -31,6 +31,7 @@ from omfs4d.core.logging import get_logger
 from omfs4d.models.gaussians import GaussianAvatar, init_gaussians_on_mesh
 from omfs4d.ops.camera import Camera
 from omfs4d.parallel.shard import avatar_loss_gaussian_sharded
+from omfs4d.render.rasterize import use_composite_kernel
 from omfs4d.train.trainer import (
     TrainState,
     _flame_lr,
@@ -90,8 +91,7 @@ class ShardedAvatarTrainer:
         self.render_opts = dict(tile=tile, max_per_tile=max_per_tile,
                                 max_tiles_per_gaussian=max_tiles_per_gaussian,
                                 large_frac=0.125)
-        self.use_pallas = (use_pallas == "always") or (
-            use_pallas == "auto" and jax.default_backend() == "tpu")
+        self.use_pallas = use_composite_kernel(use_pallas)
         self.optimizer = make_optimizer(cfg)
         self.flame_model = flame_model
         self.co_optimize = (bool(getattr(cfg, "optimize_flame", False))
@@ -607,7 +607,7 @@ class ShardedAvatarTrainer:
         return state
 
     def save_checkpoint(self, state: TrainState, output_dir, iteration: int):
-        """Same artifact layout as AvatarTrainer (point_cloud PLY + orbax +
+        """Same artifact layout as AvatarTrainer (point_cloud PLY + npz state +
         meta json); sharded arrays are fully addressable on one process, so
         the host gather is implicit."""
         import json

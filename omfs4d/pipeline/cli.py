@@ -124,6 +124,7 @@ def main(argv: list[str] | None = None):
         log.info(f"synthetic dataset at {out['path']}")
         return 0
 
+    from omfs4d.io.video import read_image
     from omfs4d.pipeline.runner import Pipeline
     pipe = Pipeline(cfg, getattr(args, "workdir", "omfs4d_work"),
                     flame_asset=getattr(args, "flame_asset", "") or None)
@@ -152,8 +153,7 @@ def main(argv: list[str] | None = None):
         from omfs4d.ops.camera import look_at_camera
         frames_dir = Path(args.frames_dir)
         sample = next((frames_dir / "images").glob("*.png"))
-        import cv2
-        h, w = cv2.imread(str(sample)).shape[:2]
+        h, w = read_image(sample).shape[:2]
         cam = look_at_camera(eye=(0, 0, 0.5), target=(0, 0, 0),
                              fx=1.6 * max(w, h), width=w, height=h)
         out = pipe.track(frames_dir, cam, landmark_method=args.landmarks)
@@ -180,10 +180,9 @@ def main(argv: list[str] | None = None):
         # (ref: run_full_pipeline_conda.ps1 preprocess->track->convert->
         #  train->render->report)
         from omfs4d.ops.camera import look_at_camera
-        import cv2 as _cv2
         frames_dir = pipe.preprocess(args.video)
         sample = next((frames_dir / "images").glob("*.png"))
-        h, w = _cv2.imread(str(sample)).shape[:2]
+        h, w = read_image(sample).shape[:2]
         cam = look_at_camera(eye=(0, 0, 0.5), target=(0, 0, 0),
                              fx=1.6 * max(w, h), width=w, height=h)
         data_dir = pipe.track(frames_dir, cam, landmark_method=args.landmarks)

@@ -17,6 +17,7 @@ import numpy as np
 from omfs4d.core.artifacts import ArtifactStore, write_experiment_manifest
 from omfs4d.core.config import Config
 from omfs4d.core.logging import EventLogger, get_logger, stage_timer
+from omfs4d.core.runtime import enable_compile_cache
 from omfs4d.io.dataset import FrameDataset, write_dataset
 from omfs4d.io.video import extract_frames, probe_video, read_image
 from omfs4d.models.assets import load_flame_asset, synthetic_flame_asset
@@ -29,30 +30,6 @@ from omfs4d.train.trainer import AvatarTrainer
 log = get_logger("pipeline")
 
 
-def _enable_persistent_compile_cache() -> None:
-    """Default the XLA persistent compile cache on for pipeline runs.
-
-    The tracker/trainer step compiles are tens of seconds to minutes at
-    512^2 — across cases on the same machine they are identical, so a
-    disk cache turns every run after the first into a warm start.  A
-    user-set jax_compilation_cache_dir (flag or JAX_COMPILATION_CACHE_DIR
-    env) is respected."""
-    import os
-
-    import jax
-
-    if jax.config.jax_compilation_cache_dir:
-        return
-    cache = os.environ.get("JAX_COMPILATION_CACHE_DIR") or str(
-        Path.home() / ".cache" / "omfs4d" / "jax_cache")
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # pragma: no cover — cache is an optimization only
-        log.warning(f"could not enable the persistent compile cache at "
-                    f"{cache}")
-
-
 class Pipeline:
     def __init__(self, cfg: Config, workdir: str | Path,
                  flame_asset: str | None = None):
@@ -61,7 +38,9 @@ class Pipeline:
         self.workdir.mkdir(parents=True, exist_ok=True)
         self.store = ArtifactStore(self.workdir / "stages")
         self.events = EventLogger(self.workdir / "events.jsonl")
-        _enable_persistent_compile_cache()
+        # the tracker/trainer step compiles are identical across cases on
+        # one machine, so a disk cache makes every run after the first warm
+        enable_compile_cache()
         if flame_asset:
             asset = load_flame_asset(flame_asset)
         else:
@@ -150,9 +129,12 @@ class Pipeline:
                     import jax
                     from jax.sharding import Mesh
                     nd = cfg.parallel.n_data
-                    if len(jax.devices()) >= nd:
-                        track_mesh = Mesh(np.asarray(jax.devices()[:nd]),
-                                          ("data",))
+                    if len(jax.devices()) < nd:
+                        raise RuntimeError(
+                            f"parallel.n_data={nd} but only "
+                            f"{len(jax.devices())} devices")
+                    track_mesh = Mesh(np.asarray(jax.devices()[:nd]),
+                                      ("data",))
                 tracker = FlameTracker(
                     self.model, track_cfg, camera, (W, H),
                     max_per_tile=cfg.render.max_per_tile,
@@ -364,7 +346,7 @@ class Pipeline:
             # frame data-parallel training on the replicated trainer: the
             # sampled batch is sharded over a `data` mesh and XLA psums the
             # gradients (SURVEY.md §2.3; the cheapest wall-clock lever for
-            # the <10 min/case budget on v5e-8)
+            # minutes per case on several cards)
             import jax
             from jax.sharding import Mesh
 
@@ -442,8 +424,11 @@ class Pipeline:
         return output_dir
 
     # ── stage 5: surgical prediction render ──────────────────
-    def render_surgery(self, model_dir: Path, data_dir: Path, output: Path,
-                       lefort_mm: float, bsso_mm: float, **kw) -> dict:
+    def render_surgery(self, model_dir: Path, data_dir: Path,
+                       output: Path | None, lefort_mm: float, bsso_mm: float,
+                       **kw) -> dict:
+        """Render the plan's prediction for every frame; `output` is the
+        MP4 to stitch, or None to stop at the PNG frames."""
         from omfs4d.predict.render_video import render_prediction
 
         with stage_timer("render_surgery", self.events):

@@ -6,7 +6,8 @@ GaussianAvatars subprocess:
 
   * picks the highest `point_cloud/iteration_*` unless pinned;
   * clears stale renders, writes `train/ours_N/renders/*.png` (+ gt/);
-  * optional deterministic frame export; stitches H.264/MP4 via cv2.
+  * optional deterministic frame export; stitches H.264/MP4 (ffmpeg or
+    OpenCV) unless no output video is asked for.
 """
 
 from __future__ import annotations
@@ -98,11 +99,10 @@ def render_dataset_frames(
     if n_tile > 1:
         from jax.sharding import Mesh
         devs = jax.devices()
-        if len(devs) >= n_tile:
-            tile_mesh = Mesh(np.asarray(devs[:n_tile]), ("tile",))
-        else:
-            log.warning(f"n_tile={n_tile} but only {len(devs)} devices; "
-                        "rendering unsharded")
+        if len(devs) < n_tile:
+            raise RuntimeError(f"parallel.n_tile={n_tile} but only "
+                               f"{len(devs)} devices")
+        tile_mesh = Mesh(np.asarray(devs[:n_tile]), ("tile",))
 
     @jax.jit
     def render_one(g, v, w2c, fx, fy, cx, cy):
@@ -134,7 +134,7 @@ def render_dataset_frames(
     # in-flight frames overlaps device rasterization with host PNG encode +
     # D2H transfers.  (Batching frames through vmap was measured slower:
     # batched lax.sort/gather lowerings underperform their unbatched forms
-    # on TPU — see the B==1 note in train/trainer.py.)
+    # — see the B==1 note in train/trainer.py.)
     window = 4
     pending: list[tuple[int, object]] = []
 
@@ -169,7 +169,7 @@ def render_prediction(
     model_dir: str | Path,
     data_dir: str | Path,
     flame_model: FlameModel,
-    output: str | Path = "final_prediction.mp4",
+    output: str | Path | None = "final_prediction.mp4",
     lefort_mm: float = 0.0,
     bsso_mm: float = 0.0,
     sensitivity: float = 1.0,
@@ -187,7 +187,10 @@ def render_prediction(
     n_tile: int = 1,
     max_per_tile: int = 512,
 ) -> dict:
-    """Full prediction pipeline: offsets -> modified dataset -> render -> MP4."""
+    """Full prediction pipeline: offsets -> modified dataset -> render -> MP4.
+
+    `output=None` stops at the rendered PNG frames (no video encoder
+    needed)."""
     lefort_offset = compute_offset(lefort_mm, sensitivity)
     bsso_offset = compute_offset(bsso_mm, sensitivity)
     effective_mode, mode_reason = choose_rig_mode(rig_mode, canonical_head_asset)
@@ -254,10 +257,12 @@ def render_prediction(
                 max_frames=deterministic_max_frames,
             )
 
-        out_path = stitch_video(renders_dir, output, fps=fps)
-        log.info(f"Video saved to {out_path}")
+        out_path = None
+        if output is not None:
+            out_path = str(stitch_video(renders_dir, output, fps=fps))
+            log.info(f"Video saved to {out_path}")
         return {
-            "video": str(out_path),
+            "video": out_path,
             "renders_dir": str(renders_dir),
             "iteration": it,
             "rig_mode": effective_mode,

@@ -1,6 +1,6 @@
 """Differentiable triangle-mesh rasterizer (soft halfplane coverage).
 
-TPU-native replacement for nvdiffrast, which VHAP uses for photometric
+JAX replacement for nvdiffrast, which VHAP uses for photometric
 FLAME tracking (ref: SURVEY.md §2.2; cache plumbing at app.py:198-203).
 Same architecture as the gaussian rasterizer — project -> tile-bin via one
 lax.sort -> fixed-K per-tile lists -> front-to-back composite — with the

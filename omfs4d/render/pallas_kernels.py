@@ -1,31 +1,28 @@
-"""Pallas TPU kernels for gaussian tile compositing (forward + custom VJP).
+"""Pallas (Triton route) kernel for gaussian tile compositing, with a VJP.
 
-This is the TPU replacement for the CUDA `diff-gaussian-rasterization`
-per-tile loops.  Instead of a sequential front-to-back loop with early
-termination (a warp pattern), compositing is reformulated as dense linear
-algebra so it runs on the MXU:
+This is the GPU replacement for the CUDA `diff-gaussian-rasterization`
+per-tile loops, and keeps their layout: one program per 16x16 screen tile,
+the tile's 256 pixels along the block, and the tile's depth-sorted list
+walked front to back in chunks of `FWD_CHUNK` / `BWD_CHUNK` entries.  Each pixel carries its
+transmittance across chunks; inside a chunk the front-to-back product is a
+cumulative sum of log(1 - alpha) along the chunk.  The loop's trip count
+is the tile's own count, so empty and sparse tiles cost next to nothing.
 
-    alpha[p, k]  = min(o_k * exp(-0.5 d^T conic d), 0.99)        (VPU)
-    lg = log1p(-alpha)
-    S_excl = lg @ U_strict          # exclusive prefix-sum over k  (MXU)
-    w = alpha * exp(S_excl)         # per-gaussian compositing weight
-    color[c, p] = sum_k color[c, k] * w[p, k]                     (MXU)
-    alpha_out[p] = 1 - exp(sum_k lg[p, k])
+    alpha[p, k] = min(o_k * exp(-0.5 d^T conic_k d), 0.99)   (0 below 1/255)
+    T[p, k]     = prod_{j<k} (1 - alpha[p, j])
+    color[c, p] = sum_k color[c, k] * alpha[p, k] * T[p, k]
+    alpha_out   = 1 - prod_k (1 - alpha[p, k])
 
-The backward pass recomputes alpha from the inputs (no (K, P) residuals in
-HBM) and reduces cotangents with the same triangular-matmul trick — the
-suffix sum that the CUDA kernel accumulates back-to-front is one matmul
-against the strict *lower* triangle.
-
-Layouts are chosen for the (sublane, lane) = (8, 128) tiling:
-  * per-tile gaussian parameters are packed as (9, K) = N_ROWS param rows
-    (ux, uy, conic a/b/c, rgb, opacity) x K lanes — Mosaic pads the sublane
-    dim internally, so padding to 16 ourselves would only add HBM traffic;
-  * the alpha matrix lives as (P, K): P = tile^2 pixel sublanes, K lanes.
-
-Per-tile VMEM at K=512, tile=16 (P=256): ~2.5 MB forward, ~4 MB backward —
-comfortably inside the 16 MB budget, so the whole composite never touches
-HBM between stages.
+The forward writes only color and alpha.  The backward recomputes alpha
+from the packed rows and reduces every per-entry cotangent over the tile's
+pixels inside the block, so each tile owns its (9, K) cotangent slot and
+no atomics are needed; the scatter back into gaussians is the transpose of
+the XLA gather that built the table.  The suffix term of the alpha
+gradient, sum_{j>k} dw_j w_j, is carried front to back as the total
+(known from the forward colour) minus a running prefix: dividing the
+transmittance by (1 - alpha) back to front, as the CUDA backward does,
+underflows float32 here because this composite never stops early.
+Everything is float32.
 """
 
 from __future__ import annotations
@@ -36,434 +33,274 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 ALPHA_CUTOFF = 1.0 / 255.0
 ALPHA_CAP = 0.99
-NEG_INF = -1e30
 
-# packed parameter row indices (9 rows exactly — padding the sublane dim to
-# a "nice" 16 measured ~8 ms/step of pure concat/slice HBM traffic in the
-# autodiff path; Mosaic pads sublanes internally for free)
+# packed parameter rows of the (T, 9, K) per-tile table
 ROW_UX, ROW_UY = 0, 1
 ROW_CA, ROW_CB, ROW_CC = 2, 3, 4
 ROW_R, ROW_G, ROW_B = 5, 6, 7
 ROW_OPAC = 8
 N_ROWS = 9
 
-
-def _pixel_grid(tile: int, grid_w: int, t):
-    """(P, 1) pixel-center x and y for tile index t (a traced scalar)."""
-    ty = t // grid_w
-    tx = t % grid_w
-    P = tile * tile
-    # generate directly in (P, 1) — Mosaic cannot reshape (t, t) -> (P, 1)
-    p_ids = jax.lax.broadcasted_iota(jnp.int32, (P, 1), 0)
-    py = p_ids // tile
-    px = p_ids % tile
-    x = (tx * tile + px).astype(jnp.float32) + 0.5
-    y = (ty * tile + py).astype(jnp.float32) + 0.5
-    return x, y
+# list entries per loop iteration, and warps per program (one program per
+# tile).  Forward and backward hold different numbers of (P, CHUNK) arrays
+# live, so they are sized apart; each pair was the fastest of four tried
+# on an H100 at 512^2, K=256 (PERF.md).
+FWD_CHUNK, FWD_WARPS = 16, 4
+BWD_CHUNK, BWD_WARPS = 16, 8
 
 
-def _alpha_matrix(packed, tile: int, grid_w: int, K: int, tid):
-    """Recompute the (P, K) effective alpha matrix for one tile.
+def _pixel_xy(tile: int, grid_w: int, tid):
+    """(P, 1) pixel-centre x and y of global tile `tid`, row-major pixels."""
+    p = jnp.arange(tile * tile, dtype=jnp.int32)
+    x = (tid % grid_w) * tile + p % tile
+    y = (tid // grid_w) * tile + p // tile
+    return ((x.astype(jnp.float32) + 0.5)[:, None],
+            (y.astype(jnp.float32) + 0.5)[:, None])
 
-    Validity needs no separate mask: the XLA-side packer zeroes the opacity
-    row beyond each tile's count, which zeroes alpha exactly.
-    `tid` is pl.program_id(0), hoisted by the caller (program_id cannot be
-    read inside a pl.when branch in interpret mode)."""
-    x, y = _pixel_grid(tile, grid_w, tid)            # (P, 1)
 
-    ux = packed[ROW_UX : ROW_UX + 1, :]              # (1, K)
-    uy = packed[ROW_UY : ROW_UY + 1, :]
-    ca = packed[ROW_CA : ROW_CA + 1, :]
-    cb = packed[ROW_CB : ROW_CB + 1, :]
-    cc = packed[ROW_CC : ROW_CC + 1, :]
-    o = packed[ROW_OPAC : ROW_OPAC + 1, :]
-
-    dx = x - ux                                       # (P, K)
+def _chunk_alpha(packed_ref, k, n, x, y):
+    """Rows of list entries `k` (a (C,) index vector) and their (P, C)
+    alpha.  Entries at or past the tile's count `n` get alpha 0."""
+    valid = k < n
+    row = lambda r: plt.load(packed_ref.at[r, k], mask=valid,
+                             other=0.0)[None, :]
+    ux, uy = row(ROW_UX), row(ROW_UY)
+    ca, cb, cc = row(ROW_CA), row(ROW_CB), row(ROW_CC)
+    o = row(ROW_OPAC)
+    dx = x - ux
     dy = y - uy
     power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-    power = jnp.minimum(power, 0.0)                   # PSD quadform safety
-
-    a_full = o * jnp.exp(power)
+    e = jnp.exp(power)
+    a_full = jnp.where(valid[None, :], o * e, 0.0)
     capped = a_full > ALPHA_CAP
-    a = jnp.where(capped, ALPHA_CAP, a_full)
-    cut = a < ALPHA_CUTOFF
-    a = jnp.where(cut, 0.0, a)
-    grad_ok = jnp.logical_not(jnp.logical_or(capped, cut))
-    return a, a_full, grad_ok, dx, dy
+    cut = a_full < ALPHA_CUTOFF
+    a = jnp.where(cut, 0.0, jnp.where(capped, ALPHA_CAP, a_full))
+    grad_ok = jnp.logical_not(capped | cut)
+    rgb = (row(ROW_R), row(ROW_G), row(ROW_B))
+    return dict(a=a, e=e, a_full=a_full, grad_ok=grad_ok, dx=dx, dy=dy,
+                ca=ca, cb=cb, cc=cc, rgb=rgb)
 
 
-K_SMALL = 128   # smallest occupancy level: K^2 matmul work drops 16x
-
-_BLOCK = 128    # prefix/suffix matmul block (one lane tile)
-
-# Triangular prefix/suffix matmuls with bf16 operands (f32 accumulation).
-# MXU bf16 rate is 4x f32 on v5e; bf16 lg loses ~0.4% relative per term.
-# Default: ON for the TPU backend — measured before the flip (round 5):
-# full-size bench 75.0 it/s @512^2 with floors green, e2e selfrecon
-# 33.53 dB vs 33.4 dB f32 (E2E_BF16_512 vs E2E_TIMING_512).  OFF elsewhere
-# so the CPU interpret-mode tests compare f32 math exactly.
-# OMFS4D_COMPOSITE_BF16=0/1 forces either way.
-import os
-
-_BF16_ENV = os.environ.get("OMFS4D_COMPOSITE_BF16", "")
-
-
-def _bf16_matmul() -> bool:
-    if _BF16_ENV in ("0", "1"):
-        return _BF16_ENV == "1"
-    return jax.default_backend() == "tpu"
-
-
-def _mm(x):
-    return x.astype(jnp.bfloat16) if _bf16_matmul() else x
-
-
-def _strict_upper(b: int) -> jnp.ndarray:
-    row = jax.lax.broadcasted_iota(jnp.int32, (b, b), 0)
-    col = jax.lax.broadcasted_iota(jnp.int32, (b, b), 1)
-    return _mm((row < col).astype(jnp.float32))
-
-
-def _excl_prefix(lg: jnp.ndarray, k: int) -> jnp.ndarray:
-    """s_excl[p, j] = sum_{i<j} lg[p, i] as blocked triangular matmuls.
-
-    A single (k, k) triangular matmul is O(P k^2) MXU FLOPs — at K=512 it
-    dominates the composite (the full-occupancy silhouette tiles).  Blocking
-    at B=128 with a running (P, 1) carry is O(P k B): 4x fewer FLOPs at
-    K=512, exact same f32 math modulo sum reassociation."""
-    if k <= _BLOCK or k % _BLOCK:
-        return jnp.dot(_mm(lg), _strict_upper(k),
-                       preferred_element_type=jnp.float32)
-    P = lg.shape[0]
-    nb = k // _BLOCK
-    u = _strict_upper(_BLOCK)
-    base = jnp.zeros((P, 1), jnp.float32)
-    outs = []
-    for b in range(nb):
-        blk = lg[:, b * _BLOCK:(b + 1) * _BLOCK]
-        outs.append(
-            jnp.dot(_mm(blk), u, preferred_element_type=jnp.float32) + base)
-        if b + 1 < nb:
-            base = base + jnp.sum(blk, axis=1, keepdims=True)
-    return jnp.concatenate(outs, axis=1)
-
-
-def _suffix_sum(m: jnp.ndarray, k: int) -> jnp.ndarray:
-    """suffix[p, j] = sum_{i>j} m[p, i] — blocked, scanned from the right."""
-    def tri(blk, b):
-        return jax.lax.dot_general(
-            _mm(blk), _strict_upper(b),
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-
-    if k <= _BLOCK or k % _BLOCK:
-        return tri(m, k)
-    P = m.shape[0]
-    nb = k // _BLOCK
-    tail = jnp.zeros((P, 1), jnp.float32)
-    outs: list = [None] * nb
-    for b in reversed(range(nb)):
-        blk = m[:, b * _BLOCK:(b + 1) * _BLOCK]
-        outs[b] = tri(blk, _BLOCK) + tail
-        if b > 0:
-            tail = tail + jnp.sum(blk, axis=1, keepdims=True)
-    return jnp.concatenate(outs, axis=1)
-
-
-def _k_levels(K: int) -> list[int]:
-    """Occupancy fast-path levels below K.  Per-tile lists are
-    count-contiguous, so a tile whose count fits a level runs the
-    composite at that K.  One level (K_SMALL) measured best on chip: a
-    denser ladder's extra branches cost more than the mid-occupancy
-    savings (the K^2 matmul is MXU-cheap; the per-level dispatch is not).
-    """
-    return [K_SMALL] if K > K_SMALL else []
-
-
-def _fwd_body(packed, color_out_ref, alpha_out_ref, tile, grid_w, k, tid):
-    """Forward composite over the first `k` list entries of one tile."""
+def _fwd_kernel(base_ref, count_ref, packed_ref, color_ref, alpha_ref,
+                *, tile: int, grid_w: int, chunk: int):
     P = tile * tile
-    a, _, _, _, _ = _alpha_matrix(packed, tile, grid_w, k, tid)
-    lg = jnp.log1p(-a)                                # (P, k)
+    n = count_ref[0]
+    x, y = _pixel_xy(tile, grid_w, pl.program_id(0) + base_ref[0])
 
-    # exclusive prefix sum over k via blocked triangular matmuls: the MXU is
-    # otherwise idle here and measures faster than a log-step lane cumsum
-    s_excl = _excl_prefix(lg, k)
+    def body(i, carry):
+        trans, r, g, b = carry
+        k = i * chunk + jnp.arange(chunk, dtype=jnp.int32)
+        c = _chunk_alpha(packed_ref, k, n, x, y)
+        lg = jnp.log1p(-c["a"])                       # (P, C)
+        incl = jnp.cumsum(lg, axis=1)
+        w = c["a"] * trans[:, None] * jnp.exp(incl - lg)
+        cr, cg, cb = c["rgb"]
+        return (trans * jnp.exp(jnp.sum(lg, axis=1)),
+                r + jnp.sum(w * cr, axis=1),
+                g + jnp.sum(w * cg, axis=1),
+                b + jnp.sum(w * cb, axis=1))
 
-    w = a * jnp.exp(s_excl)                           # (P, k)
-    colors = packed[ROW_R : ROW_B + 1, :]             # (3, k)
-    out = jax.lax.dot_general(
-        colors, w,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )                                                  # (3, P)
-    color_out_ref[0] = out
-    s_total = jnp.sum(lg, axis=1, keepdims=True)      # (P, 1)
-    alpha_out_ref[0] = (1.0 - jnp.exp(s_total)).reshape(1, P)
+    zero = jnp.zeros((P,), jnp.float32)
+    trans, r, g, b = jax.lax.fori_loop(
+        0, pl.cdiv(n, chunk), body, (zero + 1.0, zero, zero, zero))
+    color_ref[0, :] = r
+    color_ref[1, :] = g
+    color_ref[2, :] = b
+    alpha_ref[0, :] = 1.0 - trans
 
 
-def _fwd_kernel(base_ref, packed_ref, color_out_ref, alpha_out_ref,
-                *, tile: int, grid_w: int, K: int):
-    packed = packed_ref[0]                            # (N_ROWS, K)
+def _bwd_kernel(base_ref, count_ref, packed_ref, color_ref, alpha_ref,
+                dcol_ref, dalpha_ref, dpacked_ref,
+                *, tile: int, grid_w: int, chunk: int):
     P = tile * tile
-    # `base` offsets the global tile id: sharded callers composite a
-    # contiguous slab of tiles starting at axis_index * local_T
-    tid = pl.program_id(0) + base_ref[0]
+    K = dpacked_ref.shape[-1]
+    n = count_ref[0]
+    x, y = _pixel_xy(tile, grid_w, pl.program_id(0) + base_ref[0])
 
-    opac_row = packed[ROW_OPAC : ROW_OPAC + 1, :]
-    # background tiles (no live gaussian) skip all MXU work; lists are
-    # count-contiguous, so "nothing live beyond level l" <=> count <= l
-    empty = jnp.max(opac_row) <= 0.0
+    dr = dcol_ref[0, :][:, None]                      # (P, 1)
+    dg = dcol_ref[1, :][:, None]
+    db = dcol_ref[2, :][:, None]
+    # sum_k dw_k w_k over the whole list, from the forward colour
+    total = (dr * color_ref[0, :][:, None] + dg * color_ref[1, :][:, None]
+             + db * color_ref[2, :][:, None])
+    # dalpha_out/dalpha_k = T_total / (1 - alpha_k)
+    d_out = dalpha_ref[0, :][:, None] * (1.0 - alpha_ref[0, :][:, None])
 
-    @pl.when(empty)
-    def _():
-        color_out_ref[0] = jnp.zeros((3, P), jnp.float32)
-        alpha_out_ref[0] = jnp.zeros((1, P), jnp.float32)
+    def store(k, rows):
+        for r, v in enumerate(rows):
+            plt.store(dpacked_ref.at[r, k], v, mask=k < K)
 
-    not_prev = jnp.logical_not(empty)
-    for lvl in _k_levels(K):
-        fits = jnp.max(opac_row[:, lvl:]) <= 0.0
+    def body(i, carry):
+        trans, prefix = carry                         # (P,), (P,)
+        k = i * chunk + jnp.arange(chunk, dtype=jnp.int32)
+        c = _chunk_alpha(packed_ref, k, n, x, y)
+        a = c["a"]
+        lg = jnp.log1p(-a)
+        incl = jnp.cumsum(lg, axis=1)
+        t_excl = trans[:, None] * jnp.exp(incl - lg)
+        w = a * t_excl
+        cr, cg, cb = c["rgb"]
+        dw = dr * cr + dg * cg + db * cb              # (P, C)
+        dww = dw * w
+        suffix = total - prefix[:, None] - jnp.cumsum(dww, axis=1)
+        da = dw * t_excl + (d_out - suffix) / (1.0 - a)
+        da = jnp.where(c["grad_ok"], da, 0.0)
+        dq = da * c["a_full"]                         # d loss / d power
+        dx, dy = c["dx"], c["dy"]
+        store(k, (
+            jnp.sum(dq * (c["ca"] * dx + c["cb"] * dy), axis=0),
+            jnp.sum(dq * (c["cc"] * dy + c["cb"] * dx), axis=0),
+            jnp.sum(dq * (-0.5 * dx * dx), axis=0),
+            jnp.sum(dq * (-dx * dy), axis=0),
+            jnp.sum(dq * (-0.5 * dy * dy), axis=0),
+            jnp.sum(dr * w, axis=0),
+            jnp.sum(dg * w, axis=0),
+            jnp.sum(db * w, axis=0),
+            jnp.sum(da * c["e"], axis=0),
+        ))
+        return (trans * jnp.exp(jnp.sum(lg, axis=1)),
+                prefix + jnp.sum(dww, axis=1))
 
-        @pl.when(not_prev & fits)
-        def _(lvl=lvl):
-            _fwd_body(packed[:, :lvl], color_out_ref, alpha_out_ref,
-                      tile, grid_w, lvl, tid)
+    zero = jnp.zeros((P,), jnp.float32)
+    n_chunks = pl.cdiv(n, chunk)
+    jax.lax.fori_loop(0, n_chunks, body, (zero + 1.0, zero))
 
-        not_prev = not_prev & jnp.logical_not(fits)
+    # entries past the count get zero cotangents (outputs start undefined)
+    zeros = jnp.zeros((chunk,), jnp.float32)
 
-    @pl.when(not_prev)
-    def _():
-        _fwd_body(packed, color_out_ref, alpha_out_ref,
-                  tile, grid_w, K, tid)
+    def clear(i, carry):
+        store(i * chunk + jnp.arange(chunk, dtype=jnp.int32),
+              (zeros,) * N_ROWS)
+        return carry
 
-
-def _bwd_body(packed, dcol_ref, dalpha_ref, dpacked_ref,
-              tile, grid_w, k, K, tid):
-    """Backward composite over the first `k` list entries; columns beyond
-    k receive zero cotangents."""
-    P = tile * tile
-    a, a_full, grad_ok, dx, dy = _alpha_matrix(packed, tile, grid_w, k, tid)
-    one_minus = jnp.maximum(1.0 - a, 1e-6)
-    lg = jnp.log(one_minus)
-
-    s_excl = _excl_prefix(lg, k)
-    t_excl = jnp.exp(s_excl)
-    w = a * t_excl                                    # (P, K)
-
-    dcol = dcol_ref[0]                                # (3, P)
-    dalpha = dalpha_ref[0]                            # (1, P)
-    colors = packed[ROW_R : ROW_B + 1, :]             # (3, K)
-
-    # dcolor[c, k] = sum_p dcol[c, p] w[p, k]
-    dcolors = jnp.dot(dcol, w, preferred_element_type=jnp.float32)  # (3, K)
-
-    # dw[p, k] = sum_c dcol[c, p] colors[c, k]
-    dw = jax.lax.dot_general(
-        dcol, colors,
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )                                                  # (P, K)
-
-    # suffix[p, k] = sum_{j > k} dw[p, j] w[p, j]
-    suffix = _suffix_sum(dw * w, k)
-
-    s_total = jnp.sum(lg, axis=1, keepdims=True)      # (P, 1)
-    t_total = jnp.exp(s_total)
-    dA = dalpha.reshape(P, 1)                          # (P, 1)
-
-    da = dw * t_excl - suffix / one_minus + dA * t_total / one_minus
-    da = jnp.where(grad_ok, da, 0.0)
-
-    o = packed[ROW_OPAC : ROW_OPAC + 1, :]            # (1, K)
-    e = a_full / jnp.maximum(o, 1e-12)                # exp(power)
-    do = jnp.sum(da * e, axis=0, keepdims=True)       # (1, K)
-    dq = da * a_full                                   # (P, K)
-
-    ca = packed[ROW_CA : ROW_CA + 1, :]
-    cb = packed[ROW_CB : ROW_CB + 1, :]
-    cc = packed[ROW_CC : ROW_CC + 1, :]
-    dux = jnp.sum(dq * (ca * dx + cb * dy), axis=0, keepdims=True)
-    duy = jnp.sum(dq * (cc * dy + cb * dx), axis=0, keepdims=True)
-    dca = jnp.sum(dq * (-0.5 * dx * dx), axis=0, keepdims=True)
-    dcb = jnp.sum(dq * (-dx * dy), axis=0, keepdims=True)
-    dcc = jnp.sum(dq * (-0.5 * dy * dy), axis=0, keepdims=True)
-
-    dp = jnp.concatenate(
-        [dux, duy, dca, dcb, dcc, dcolors, do], axis=0)
-    if k == K:
-        dpacked_ref[0] = dp
-    else:
-        dpacked_ref[0] = jnp.concatenate(
-            [dp, jnp.zeros((N_ROWS, K - k), jnp.float32)], axis=1)
+    jax.lax.fori_loop(n_chunks, pl.cdiv(K, chunk), clear, 0)
 
 
-def _bwd_kernel(base_ref, packed_ref, dcol_ref, dalpha_ref, dpacked_ref,
-                *, tile: int, grid_w: int, K: int):
-    packed = packed_ref[0]                            # (N_ROWS, K)
-    tid = pl.program_id(0) + base_ref[0]
-
-    opac_row = packed[ROW_OPAC : ROW_OPAC + 1, :]
-    empty = jnp.max(opac_row) <= 0.0
-
-    @pl.when(empty)
-    def _():
-        dpacked_ref[0] = jnp.zeros((N_ROWS, K), jnp.float32)
-
-    not_prev = jnp.logical_not(empty)
-    for lvl in _k_levels(K):
-        fits = jnp.max(opac_row[:, lvl:]) <= 0.0
-
-        @pl.when(not_prev & fits)
-        def _(lvl=lvl):
-            _bwd_body(packed[:, :lvl], dcol_ref, dalpha_ref, dpacked_ref,
-                      tile, grid_w, lvl, K, tid)
-
-        not_prev = not_prev & jnp.logical_not(fits)
-
-    @pl.when(not_prev)
-    def _():
-        _bwd_body(packed, dcol_ref, dalpha_ref, dpacked_ref,
-                  tile, grid_w, K, K, tid)
+def _check_device(interpret: bool):
+    if not interpret and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            "the composite kernel compiles for an NVIDIA GPU only; on "
+            f"{jax.default_backend()!r} use the XLA composite "
+            "(render.use_pallas=never), or interpret=True in tests")
 
 
-def _call_fwd(packed, base, tile: int, grid_w: int, interpret: bool):
-    T, _, K = packed.shape
-    P = tile * tile
-    grid = (T,)
-    return pl.pallas_call(
-        functools.partial(_fwd_kernel, tile=tile, grid_w=grid_w, K=K),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, N_ROWS, K), lambda t: (t, 0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, 3, P), lambda t: (t, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, P), lambda t: (t, 0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((T, 3, P), jnp.float32),
-            jax.ShapeDtypeStruct((T, 1, P), jnp.float32),
-        ],
-        interpret=interpret,
-    )(base, packed)
+def _tile_specs(*rows_and_len):
+    return [pl.BlockSpec((None, r, L), lambda t: (t, 0, 0))
+            for r, L in rows_and_len]
 
 
-def _call_bwd(packed, base, dcol, dalpha, tile: int, grid_w: int, interpret: bool):
+def _call_fwd(packed, counts, base, tile, grid_w, interpret):
+    _check_device(interpret)
     T, _, K = packed.shape
     P = tile * tile
     return pl.pallas_call(
-        functools.partial(_bwd_kernel, tile=tile, grid_w=grid_w, K=K),
+        functools.partial(_fwd_kernel, tile=tile, grid_w=grid_w,
+                          chunk=FWD_CHUNK),
         grid=(T,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, N_ROWS, K), lambda t: (t, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 3, P), lambda t: (t, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, P), lambda t: (t, 0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, N_ROWS, K), lambda t: (t, 0, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((T, N_ROWS, K), jnp.float32),
+        in_specs=[pl.BlockSpec((1,), lambda t: (0,)),
+                  pl.BlockSpec((1,), lambda t: (t,)),
+                  *_tile_specs((N_ROWS, K))],
+        out_specs=_tile_specs((3, P), (1, P)),
+        out_shape=[jax.ShapeDtypeStruct((T, 3, P), jnp.float32),
+                   jax.ShapeDtypeStruct((T, 1, P), jnp.float32)],
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=FWD_WARPS,
+                                           num_stages=1),
         interpret=interpret,
-    )(base, packed, dcol, dalpha)
+        name="composite_fwd",
+    )(base, counts, packed)
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4))
-def composite_tiles(packed, base, tile: int, grid_w: int, interpret: bool):
-    """(T, 9, K) packed params (+ (1,) int32 global-tile-id base) ->
-    ((T, 3, P), (T, 1, P))."""
-    return _call_fwd(packed, base, tile, grid_w, interpret)
+def _call_bwd(packed, counts, base, color, alpha, dcol, dalpha,
+              tile, grid_w, interpret):
+    _check_device(interpret)
+    T, _, K = packed.shape
+    P = tile * tile
+    return pl.pallas_call(
+        functools.partial(_bwd_kernel, tile=tile, grid_w=grid_w,
+                          chunk=BWD_CHUNK),
+        grid=(T,),
+        in_specs=[pl.BlockSpec((1,), lambda t: (0,)),
+                  pl.BlockSpec((1,), lambda t: (t,)),
+                  *_tile_specs((N_ROWS, K), (3, P), (1, P), (3, P), (1, P))],
+        out_specs=_tile_specs((N_ROWS, K))[0],
+        out_shape=jax.ShapeDtypeStruct((T, N_ROWS, K), jnp.float32),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=BWD_WARPS,
+                                           num_stages=1),
+        interpret=interpret,
+        name="composite_bwd",
+    )(base, counts, packed, color, alpha, dcol, dalpha)
 
 
-def _composite_fwd(packed, base, tile, grid_w, interpret):
-    out = _call_fwd(packed, base, tile, grid_w, interpret)
-    return out, (packed, base)
+@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4, 5))
+def composite_tiles(packed, counts, base, tile: int, grid_w: int,
+                    interpret: bool):
+    """(T, 9, K) packed rows, (T,) int32 counts and a (1,) int32 global
+    tile-id base -> ((T, 3, P) colour, (T, 1, P) alpha)."""
+    return _call_fwd(packed, counts, base, tile, grid_w, interpret)
+
+
+def _composite_fwd(packed, counts, base, tile, grid_w, interpret):
+    out = _call_fwd(packed, counts, base, tile, grid_w, interpret)
+    return out, (packed, counts, base, *out)
 
 
 def _composite_bwd(tile, grid_w, interpret, res, cot):
-    packed, base = res
+    packed, counts, base, color, alpha = res
     dcol, dalpha = cot
-    dpacked = _call_bwd(packed, base, dcol, dalpha, tile, grid_w, interpret)
+    dpacked = _call_bwd(packed, counts, base, color, alpha, dcol, dalpha,
+                        tile, grid_w, interpret)
     # int operands take a float0 cotangent
-    dbase = np.zeros(base.shape, jax.dtypes.float0)
-    return (dpacked, dbase)
+    return (dpacked, np.zeros(counts.shape, jax.dtypes.float0),
+            np.zeros(base.shape, jax.dtypes.float0))
 
 
 composite_tiles.defvjp(_composite_fwd, _composite_bwd)
 
-def _zero_base():
-    return jnp.zeros((1,), jnp.int32)
 
-
-def _gather_packed(params9, lists):
-    """(N, 9) table + (T, K) per-tile indices -> (T, 9, K) packed params.
-
-    One plain XLA row gather; XLA derives its transpose as ONE row
-    scatter-add into the (N, 9) table.  Tried and REVERTED (round 4): a
-    custom VJP doing 9 component-wise 1-D scatter-adds measured 2.6 ms vs
-    4.4 ms for the row scatter in a chained MICRObenchmark, but in the full
-    train-step graph it HALVED throughput (58 -> 32 it/s on chip) — the
-    in-graph row scatter overlaps with the Pallas bwd kernel's compute,
-    while the 9 separate scatters serialize.  Chained isolation benches do
-    not see cross-op overlap; only bench.py verdicts count for this op."""
-    return jnp.swapaxes(params9[lists], 1, 2)
-
-
-def _pack_lists(uv, conic, colors, opacity, lists, counts):
-    """Gather the (T, 9, K) packed per-tile parameter table.
-
-    Validity is baked into the opacity row: entries past the per-tile count
-    get 0, making their alpha exactly 0 in-kernel (no SMEM counts needed)."""
-    K = lists.shape[1]
+def _pack_lists(uv, conic, colors, opacity, lists):
+    """(T, 9, K) per-tile parameter table: one XLA row gather, whose
+    transpose is one row scatter-add into the (N, 9) table."""
     params9 = jnp.concatenate(
         [uv, conic, colors, opacity[:, None]], axis=1)   # (N, 9)
-    packed = _gather_packed(params9, lists)               # (T, 9, K)
-    k_valid = jnp.arange(K, dtype=jnp.int32)[None, :] < counts[:, None]
-    opac_row = jnp.where(k_valid, packed[:, ROW_OPAC, :], 0.0)
-    return jnp.concatenate(
-        [packed[:, :ROW_OPAC, :], opac_row[:, None, :]], axis=1)
+    return jnp.swapaxes(params9[lists], 1, 2)
 
 
 def composite_lists_pallas(uv, conic, colors, opacity, lists, counts,
                            tile: int, grid_w: int, tile_base=None,
-                           interpret: bool | None = None):
-    """Pallas composite over an arbitrary contiguous tile slab.
+                           interpret: bool = False):
+    """Kernel composite over a contiguous slab of tiles.
 
     Drop-in for `composite_tiles_xla` (same ((T, P, 3), (T, P)) outputs) so
-    the sharded render paths (parallel.shard) can run the MXU kernel per
+    the sharded render paths (parallel.shard) can run the kernel per
     shard: `tile_base` is the slab's first GLOBAL tile id (traced; e.g.
-    axis_index * local_T inside shard_map), defaulting to 0."""
-    packed = _pack_lists(uv, conic, colors, opacity, lists, counts)
-    base = (_zero_base() if tile_base is None
-            else jnp.asarray(tile_base, jnp.int32).reshape(1))
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    col, alp = composite_tiles(packed, base, tile, grid_w, interpret)
+    axis_index * local_T inside shard_map), defaulting to 0.  `interpret`
+    runs the kernel in the Pallas interpreter (tests on the CPU)."""
+    P = tile * tile
+    if P & (P - 1):
+        raise ValueError(f"tile={tile}: the kernel needs tile*tile to be a "
+                         "power of two")
+    packed = _pack_lists(uv, conic, colors, opacity, lists)
+    base = jnp.asarray(0 if tile_base is None else tile_base,
+                       jnp.int32).reshape(1)
+    col, alp = composite_tiles(packed, counts.astype(jnp.int32), base,
+                               tile, grid_w, interpret)
     return jnp.swapaxes(col, 1, 2), alp[:, 0, :]
 
 
-def composite_pallas(uv, conic, colors, opacity, binning, width, height, tile=16):
-    """Drop-in replacement for composite_reference on TPU.
+def composite_pallas(uv, conic, colors, opacity, binning, width, height,
+                     tile=16, interpret: bool = False):
+    """Kernel counterpart of `rasterize.composite_reference`: returns
+    (image (H, W, 3), alpha (H, W))."""
+    from omfs4d.render.rasterize import assemble_tiles
 
-    The per-tile parameter gather stays in XLA (its transpose is the
-    scatter-add the CUDA backward does with atomics); the Pallas kernel does
-    the math-dense compositing.
-    """
     grid_w = (width + tile - 1) // tile
-    grid_h = (height + tile - 1) // tile
-    num_tiles = grid_w * grid_h
-    packed = _pack_lists(uv, conic, colors, opacity,
-                         binning.tile_lists, binning.tile_counts)
-
-    interpret = jax.default_backend() != "tpu"
-    col, alp = composite_tiles(packed, _zero_base(), tile, grid_w, interpret)
-
-    img = col.reshape(grid_h, grid_w, 3, tile, tile)
-    img = img.transpose(0, 3, 1, 4, 2).reshape(grid_h * tile, grid_w * tile, 3)
-    alpha = alp.reshape(grid_h, grid_w, tile, tile)
-    alpha = alpha.transpose(0, 2, 1, 3).reshape(grid_h * tile, grid_w * tile)
-    return img[:height, :width], alpha[:height, :width]
+    col, alp = composite_lists_pallas(
+        uv, conic, colors, opacity, binning.tile_lists, binning.tile_counts,
+        tile, grid_w, interpret=interpret)
+    return assemble_tiles(col, alp, width, height, tile)

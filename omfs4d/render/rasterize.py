@@ -1,27 +1,26 @@
-"""Differentiable 3D Gaussian Splatting rasterizer — TPU-first design.
+"""Differentiable 3D Gaussian Splatting rasterizer.
 
 Replaces the CUDA `diff-gaussian-rasterization` extension the reference
 drives through GaussianAvatars subprocesses (ref: train_ghost.py:227-243,
 render_surgery.py:289-301).  The design maps the classic
-project -> tile-bin -> depth-sort -> alpha-composite pipeline onto XLA/TPU
-primitives instead of translating the CUDA kernels:
+project -> tile-bin -> depth-sort -> alpha-composite pipeline onto XLA
+primitives, with one hand-written kernel for the composite:
 
   * projection/culling: vectorized EWA math (omfs4d.ops.camera), pure XLA;
   * binning: (gaussian, tile) pair expansion with a static per-gaussian tile
     cap, one `jax.lax.sort` by (tile, depth) — XLA's sort, no atomics;
   * per-tile lists: fixed capacity `max_per_tile`; the lexicographic sort
     guarantees the K *nearest* gaussians are kept on overflow;
-  * compositing: for each tile, alphas form a (K, P) matrix in on-chip
-    memory; transmittance is an exclusive cumulative product along K and the
-    final color is one (P, K) @ (K, 3) matmul — MXU work, not a scalar loop.
-    front-to-back semantics match the CUDA rasterizer (alpha cap 0.99,
-    1/255 cutoff).
+  * compositing: front-to-back over each tile's list, with the CUDA
+    rasterizer's semantics (alpha cap 0.99, 1/255 cutoff, no early stop).
 
-The compositing stage has two interchangeable backends:
+The compositing stage has two interchangeable backends, chosen by
+`use_composite_kernel`:
   * `composite_reference` — pure jnp (autodiff; runs everywhere), chunked
-    with `lax.map` to bound memory;
-  * the Pallas TPU kernel in omfs4d.render.pallas_kernels with a custom VJP
-    (used automatically on TPU).
+    with `lax.map` to bound memory: per tile a (K, P) alpha matrix, an
+    exclusive cumulative product along K and one (P, K) @ (K, 3) product;
+  * the Pallas kernel in omfs4d.render.pallas_kernels (Triton route, with
+    its own VJP), the default on a GPU.
 
 Everything is fixed-shape: image size, tile grid, pair capacity and
 per-tile capacity are static, so one compilation serves the whole training
@@ -66,8 +65,16 @@ def bin_gaussians(
     large_frac: float = 0.125,
     two_class_min_n: int = 4096,
     large_min: int = 1024,
+    exact_order: bool = False,
 ) -> TileBinning:
     """Build depth-sorted per-tile gaussian lists.
+
+    By default the sort key holds the depth to ~2^-12 relative at 512^2
+    (coarser with more tiles), and entries that tie there keep the order of
+    the sort.  `exact_order` sorts by the full float32 depth, then by index,
+    so a tile's order depends on the gaussians alone and not on where they
+    sit in the input (the gaussian-sharded renderer needs this to match one
+    device; the sort takes three keys instead of one).
 
     A gaussian covers the tiles intersecting its 3-sigma screen box,
     enumerated as a static (kh, kw) window — larger gaussians get their
@@ -111,8 +118,8 @@ def bin_gaussians(
     # than the 3-operand lexicographic form.
     tile_bits = int(num_tiles + 1).bit_length()
     depth_bits = 31 - tile_bits
-    d_q1 = jax.lax.bitcast_convert_type(
-        jnp.maximum(depth, 0.0), jnp.int32) >> (31 - depth_bits)
+    d_full = jax.lax.bitcast_convert_type(jnp.maximum(depth, 0.0), jnp.int32)
+    d_q1 = d_full if exact_order else d_full >> (31 - depth_bits)
 
     def window_pairs(g_x0, g_y0, g_x1, g_y1, ok, g_dq, g_idx, kh, kw):
         """Flat (tile, idx, depth-key) pair arrays for one window class."""
@@ -144,9 +151,9 @@ def bin_gaussians(
         needs_large = visible & ((span_x > kw_s) | (span_y > kh_s))
         m = min(n, max(large_min, int(round(n * large_frac))))
         # top-m by radius via ONE full key+payload sort: lax.sort at N=131k
-        # measures ~0.4 ms on v5e vs ~1.1 ms for approx_max_k and ~1.6 ms
-        # for exact top_k (both reduction units lose to the sorter here),
-        # and the selection is EXACT — no recall-miss spills
+        # measured faster than approx_max_k and exact top_k on the
+        # accelerator this was first tuned for, and the selection is
+        # EXACT — no recall-miss spills
         neg_score = jnp.where(needs_large, -radius, jnp.float32(3.4e38))
         _, sorted_idx = jax.lax.sort((neg_score, idx_all), num_keys=1)
         large_sel = sorted_idx[:m]
@@ -177,17 +184,19 @@ def bin_gaussians(
             visible & ((span_x > kw_l) | (span_y > kh_l)))
         spilled = jnp.zeros((), jnp.int32)
 
-    key = (flat_tile << depth_bits) | d_q
-
     # sorted by (tile, depth): nearest-first inside each tile
-    s_key, s_idx = jax.lax.sort((key, flat_idx), num_keys=1)
-    s_tile = s_key >> depth_bits
+    if exact_order:
+        s_tile, _, s_idx = jax.lax.sort((flat_tile, d_q, flat_idx),
+                                        num_keys=3)
+    else:
+        key = (flat_tile << depth_bits) | d_q
+        s_key, s_idx = jax.lax.sort((key, flat_idx), num_keys=1)
+        s_tile = s_key >> depth_bits
 
     # Pairs are now tile-contiguous, so the per-tile lists are pure GATHERS:
     # segment starts via a (num_tiles+1)-query searchsorted, then
     # tile_lists[t, k] = s_idx[starts[t] + k].  (A per-pair searchsorted +
-    # scatter formulation measured ~800 ms at 4.7M pairs on v5e; this is
-    # ~25x cheaper.)
+    # scatter formulation measured far slower at millions of pairs.)
     starts = jnp.searchsorted(
         s_tile, jnp.arange(num_tiles + 1, dtype=s_tile.dtype), side="left"
     ).astype(jnp.int32)
@@ -253,7 +262,8 @@ def composite_tiles_xla(
         t_excl = jnp.concatenate([jnp.ones((1, P)), trans[:-1]], axis=0)
         w = alpha * t_excl                                    # (K, P)
         color = jnp.einsum("kp,kc->pc", w, ck,
-                           preferred_element_type=jnp.float32)  # (P, 3) MXU
+                           preferred_element_type=jnp.float32,
+                           precision=jax.lax.Precision.HIGHEST)  # (P, 3)
         return color, 1.0 - trans[-1]
 
     pad_tiles = (-num_tiles) % chunk_tiles
@@ -308,12 +318,36 @@ def composite_reference(
     return assemble_tiles(colors_out, alphas_out, width, height, tile)
 
 
-def _use_pallas(mode: str) -> bool:
-    if mode == "always":
-        return True
+def use_composite_kernel(mode: str = "auto") -> bool:
+    """The one place the composite backend is chosen (`render.use_pallas`).
+
+    "auto" takes the kernel on a GPU and the XLA reference elsewhere;
+    "always" demands the kernel and fails off a GPU (the kernel's
+    interpreter is reachable only through an explicit `interpret=True`);
+    "never" takes the reference."""
+    on_gpu = jax.default_backend() == "gpu"
+    if mode == "auto":
+        return on_gpu
     if mode == "never":
         return False
-    return jax.default_backend() == "tpu"
+    if mode == "always":
+        if not on_gpu:
+            raise RuntimeError(
+                "render.use_pallas=always needs a GPU; this process runs on "
+                f"{jax.default_backend()!r}")
+        return True
+    raise ValueError(f"use_pallas must be auto|always|never, got {mode!r}")
+
+
+def composite(uv, conic, colors, opacity, binning: TileBinning,
+              width: int, height: int, tile: int, kernel: bool):
+    """(image (H, W, 3), alpha (H, W)) from the kernel or the reference."""
+    if kernel:
+        from omfs4d.render.pallas_kernels import composite_pallas
+        return composite_pallas(uv, conic, colors, opacity, binning,
+                                width, height, tile)
+    return composite_reference(uv, conic, colors, opacity, binning,
+                               width, height, tile)
 
 
 @functools.partial(
@@ -367,17 +401,9 @@ def rasterize(
         large_frac=large_frac, two_class_min_n=two_class_min_n,
     )
 
-    if _use_pallas(backend):
-        from omfs4d.render.pallas_kernels import composite_pallas
-        img, alpha = composite_pallas(
-            proj["uv"], proj["conic"], colors, opacity, binning,
-            width, height, tile,
-        )
-    else:
-        img, alpha = composite_reference(
-            proj["uv"], proj["conic"], colors, opacity, binning,
-            width, height, tile,
-        )
+    img, alpha = composite(proj["uv"], proj["conic"], colors, opacity,
+                           binning, width, height, tile,
+                           use_composite_kernel(backend))
 
     if background is None:
         background = jnp.ones((3,), jnp.float32)

@@ -1,6 +1,6 @@
 """UV texture atlas sampling + deferred textured-mesh rendering.
 
-TPU-native equivalent of VHAP's `rgb_init_texture` appearance model
+JAX equivalent of VHAP's `rgb_init_texture` appearance model
 (ref stage table: /root/reference/app.py:1283-1292): the photometric FLAME
 tracker optimizes a (R, R, 3) texture atlas instead of per-face colors, so
 appearance resolution is decoupled from mesh resolution — the texture
@@ -12,7 +12,7 @@ rasterizer interpolates per-vertex UV as a 2-channel attribute image
 sample per output pixel produces RGB.  Both the sample positions (→ vertex
 gradients) and the texel fetch (→ texture gradients) are differentiable;
 the per-pixel gather is H*W texel lookups — independent of K faces per
-tile, which keeps the TPU gather volume tiny next to the compositing math.
+tile, which keeps the gather volume tiny next to the compositing math.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Self-trained neural facial-landmark detector (JAX CNN, MXU-friendly).
+"""Self-trained neural facial-landmark detector (JAX CNN).
 
 The reference detects landmarks with external GPU models (MediaPipe 478-pt,
 flame_fitter.py:200-240; face-alignment FAN via VHAP, preprocess_video.py:163)
@@ -7,7 +7,8 @@ a small strided-conv regressor trained by *domain-randomized self-supervision*
 — the framework renders its own FLAME head (random identity/expression/pose/
 camera/texture/background/photometrics) with the differentiable rasterizer
 and supervises on the projected ground-truth landmark positions.  The whole
-data generator + train step is one jitted TPU program; no files, no labels.
+data generator + train step is one jitted device program; no files, no
+labels.
 
 Weights are cached as an .npz (flat name->array dict).  The detector is
 registered as ``method="neural"`` in omfs4d.track.landmarks, alongside

@@ -1,8 +1,10 @@
-"""Checkpoint save/restore (orbax) + gaussian PLY snapshots.
+"""Checkpoint save/restore (.npz of the flattened state) + PLY snapshots.
 
 Artifact layout mirrors the reference's training outputs so downstream
 tooling matches: `point_cloud/iteration_N/point_cloud.ply` + checkpoints
 (ref consumers: render_surgery.py:269-287, validation_reporting.py:48-63).
+A full-state checkpoint is `checkpoints/iter_N/state.npz`: the state
+pytree's leaves in flattening order, each keyed by its index and path.
 """
 
 from __future__ import annotations
@@ -15,26 +17,34 @@ import numpy as np
 from omfs4d.io.ply import save_ply, load_ply
 from omfs4d.models.gaussians import GaussianAvatar
 
+STATE_FILE = "state.npz"
+
 
 def save_state(path: str | Path, state) -> Path:
-    import orbax.checkpoint as ocp
-
+    """Write `state`'s leaves to `<path>/state.npz`; returns `path`."""
     path = Path(path).resolve()
-    ckptr = ocp.PyTreeCheckpointer()
-    ckptr.save(path, jax.tree_util.tree_map(np.asarray, state), force=True)
+    path.mkdir(parents=True, exist_ok=True)
+    leaves = jax.tree_util.tree_flatten_with_path(state)[0]
+    arrays = {f"{i:05d}{jax.tree_util.keystr(kp)}": np.asarray(leaf)
+              for i, (kp, leaf) in enumerate(leaves)}
+    tmp = path / (STATE_FILE + ".tmp")
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    tmp.replace(path / STATE_FILE)
     return path
 
 
-def restore_state(path: str | Path, template=None):
-    import orbax.checkpoint as ocp
-
-    ckptr = ocp.PyTreeCheckpointer()
-    if template is not None:
-        # restore against the template structure (leaf order of the raw
-        # restore is dict-alphabetical, not NamedTuple-positional)
-        item = jax.tree_util.tree_map(np.asarray, template)
-        return ckptr.restore(Path(path).resolve(), item=item)
-    return ckptr.restore(Path(path).resolve())
+def restore_state(path: str | Path, template):
+    """Leaves of `<path>/state.npz` in `template`'s pytree structure (host
+    arrays); the leaf count and each leaf's rank must match."""
+    with np.load(Path(path) / STATE_FILE) as f:
+        leaves = [f[k] for k in sorted(f.files)]
+    want, treedef = jax.tree_util.tree_flatten(template)
+    if len(leaves) != len(want) or any(
+            np.ndim(a) != np.ndim(b) for a, b in zip(leaves, want)):
+        raise ValueError(f"checkpoint {path} does not match the template "
+                         f"({len(leaves)} leaves vs {len(want)})")
+    return jax.tree_util.tree_unflatten(treedef, leaves)
 
 
 def latest_checkpoint(output_dir: str | Path) -> tuple[Path, int] | None:

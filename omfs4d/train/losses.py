@@ -31,15 +31,15 @@ def _band_matrix(n: int, size: int, sigma: float) -> jnp.ndarray:
 
 
 def _sep_blur(img: jnp.ndarray, size: int, sigma: float) -> jnp.ndarray:
-    """Separable gaussian blur as shifted-slice FMA accumulation (VPU).
+    """Separable gaussian blur as shifted-slice FMA accumulation.
 
     Zero padding makes this bitwise-equivalent (modulo sum order) to the
     truncated band-matrix formulation `_band_matrix` keeps for the parity
     test: border rows of the band matrix simply lack the out-of-range taps.
     An 11-tap filter as a (H, H) matmul is ~98% structural zeros at 512^2
-    and needed Precision.HIGHEST (6-pass f32 MXU) to keep the windowed
-    variance from cancelling in bf16; 2*size shifted FMAs over the image do
-    the same math in native-f32 VPU lanes with ~30x fewer FLOPs.
+    and needs Precision.HIGHEST to keep the windowed variance from
+    cancelling at reduced matmul precision; 2*size shifted FMAs over the
+    image do the same math in native f32 with ~30x fewer FLOPs.
     """
     x = jnp.arange(size, dtype=jnp.float32) - (size - 1) / 2.0
     g = jnp.exp(-(x ** 2) / (2 * sigma ** 2))
@@ -58,7 +58,7 @@ def ssim(pred: jnp.ndarray, target: jnp.ndarray, window_size: int = 11) -> jnp.n
     """Windowed SSIM over (H, W, C) images in [0, 1].
 
     The separable gaussian window is applied as shifted-slice FMA chains
-    (`_sep_blur`) — elementwise VPU work XLA fuses end-to-end.  Border
+    (`_sep_blur`) — elementwise work XLA fuses end-to-end.  Border
     rows/cols (half-window) are excluded from the mean, matching a
     VALID-padded window.
     """

@@ -1,15 +1,14 @@
-"""Sharded-trainer throughput vs the replicated trainer on the real chip.
+"""Sharded-trainer throughput vs the replicated trainer on one GPU.
 
 The gaussian-sharded path (parallel.sharded_trainer) is correctness-tested
 against the replicated loss curve on the virtual CPU mesh, but its
-single-chip throughput had never been measured (VERDICT r4 ask #7).  On a
+one-card throughput is the denominator of any multi-card speedup.  On a
 1-device mesh the shard_map adds program structure (and disables some
 XLA fusions across the shard boundary) without any parallel win — this
-script quantifies that overhead at the bench shapes so multi-chip speedup
-projections start from an honest single-chip denominator.
+script quantifies that overhead at the bench shapes.
 
-    python scripts/bench_sharded.py                 # real chip, 512^2
-    python scripts/bench_sharded.py --cpu --quick   # smoke
+    python scripts/bench_sharded.py            # 512^2
+    python scripts/bench_sharded.py --quick    # small shapes
 """
 
 from __future__ import annotations
@@ -26,15 +25,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
-    ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--iters", type=int, default=0)
     args = ap.parse_args()
 
+    from omfs4d.core.runtime import enable_compile_cache, require_gpu
+
     import jax
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     import jax.numpy as jnp
     import numpy as np
     from jax.sharding import Mesh
@@ -47,17 +43,17 @@ def main():
     from omfs4d.parallel.sharded_trainer import ShardedAvatarTrainer
     from omfs4d.train.trainer import AvatarTrainer, float_fields
 
-    backend = jax.default_backend()
-    quick = args.quick or backend == "cpu"
+    enable_compile_cache()
+    dev = require_gpu()[0]
+    quick = args.quick
     size = 128 if quick else 512
     n_timed = args.iters or (5 if quick else 50)
     n_vertices = 700 if quick else 5143
     capacity = 4096 if quick else 131_072
     target_alive = 2048 if quick else 65_536
     max_per_tile = 128 if quick else 256
-    use_pallas = "always" if backend == "tpu" else "never"
 
-    print(f"[bench_sharded] backend={backend} size={size} "
+    print(f"[bench_sharded] device={dev.device_kind} size={size} "
           f"alive={target_alive}", flush=True)
 
     model = FlameModel.from_asset(synthetic_flame_asset(n_vertices=n_vertices))
@@ -118,7 +114,7 @@ def main():
 
     # replicated baseline
     rep = AvatarTrainer(np.asarray(model.faces), cfg, W, H,
-                        max_per_tile=max_per_tile, use_pallas=use_pallas)
+                        max_per_tile=max_per_tile)
     rs = rep.init_state(capacity=capacity)._replace(
         gaussians=g)
     rs = rs._replace(opt_state=rep.optimizer.init(float_fields(g)))
@@ -126,12 +122,11 @@ def main():
         rs = rep.compact_to_alive(rs)
     rep_ips = run("replicated", rep._step_fn, rs)
 
-    # gaussian-sharded on however many devices exist (1 on the real chip)
+    # gaussian-sharded on however many devices exist
     n_dev = len(jax.devices())
     mesh = Mesh(np.asarray(jax.devices()).reshape(n_dev), ("gauss",))
     sh = ShardedAvatarTrainer(np.asarray(model.faces), cfg, W, H, mesh=mesh,
-                              max_per_tile=max_per_tile,
-                              use_pallas=use_pallas)
+                              max_per_tile=max_per_tile)
     ss = sh.init_state(gaussians=g)
     if cfg.compact_at_refit:
         ss = sh.compact_to_alive(ss)
@@ -142,7 +137,7 @@ def main():
     sh_ips = run(f"gauss-sharded x{n_dev}", sh_step, ss)
 
     out = {
-        "backend": backend, "resolution": size, "n_alive": target_alive,
+        "device": dev.device_kind, "resolution": size, "n_alive": target_alive,
         "n_devices": n_dev,
         "replicated_it_per_sec": round(rep_ips, 2),
         "sharded_it_per_sec": round(sh_ips, 2),

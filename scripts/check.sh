@@ -1,10 +1,11 @@
 #!/usr/bin/env bash
-# Full verification pass: test suite (virtual 8-CPU mesh), multichip dryrun,
-# entry compile check, quick bench.  TPU-independent except the final bench.
+# CPU verification pass: test suite (virtual 8-CPU mesh), multichip
+# dryrun, entry compile check, multi-host dryrun.  Measurements and the
+# card's own checks are `python chip_smoke.py` and `python bench.py`, on a GPU.
 #
 #   check.sh          full suite (tens of minutes on a small host)
 #   check.sh --quick  signal in <5 min: skips @pytest.mark.slow training/e2e
-#                     tests and the CPU e2e smoke; keeps dryruns + quick bench
+#                     tests; keeps the dryruns
 set -e
 cd "$(dirname "$0")/.."
 
@@ -35,12 +36,3 @@ python -c "
 import __graft_entry__ as ge
 ge.dryrun_multiprocess(n_processes=2, local_devices=4, port=12971)
 "
-
-if [ "$QUICK" = 0 ]; then
-  echo "== e2e smoke (CPU, ~10 min): video -> neural landmarks -> avatar -> prediction =="
-  python -u scripts/e2e_case.py --size 64 --frames 4 --iters 120 --cpu \
-      --workdir /tmp/omfs4d_check_e2e --out /tmp/omfs4d_check_e2e.json
-fi
-
-echo "== benchmark (current backend) =="
-python bench.py --quick

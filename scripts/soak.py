@@ -79,42 +79,38 @@ def main():
     ap.add_argument("--size", type=int, default=256)
     ap.add_argument("--frames", type=int, default=60)
     ap.add_argument("--iters", type=int, default=100_000)
-    ap.add_argument("--workdir", default="/tmp/omfs4d_soak")
+    ap.add_argument("--workdir", default="omfs4d_soak")
     ap.add_argument("--out", default="E2E_SOAK_256.json")
-    ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
 
-    import jax
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from omfs4d.core.runtime import enable_compile_cache, require_gpu
+
+    enable_compile_cache()
+    dev = require_gpu()[0]
 
     from omfs4d.core.config import Config
     from omfs4d.io.synthetic import make_synthetic_dataset
     from omfs4d.pipeline.runner import Pipeline
 
-    backend = jax.default_backend()
     work = Path(args.workdir)
     work.mkdir(parents=True, exist_ok=True)
-    print(f"[soak] backend={backend} size={args.size} iters={args.iters}",
-          flush=True)
+    print(f"[soak] device={dev.device_kind} size={args.size} "
+          f"iters={args.iters}", flush=True)
 
     case = make_synthetic_dataset(
         work / "case", n_frames=args.frames, width=args.size,
-        height=args.size, backend="always" if backend == "tpu" else "never")
+        height=args.size, backend="auto")
 
     cfg = Config()
     cfg.pipeline.target_size = args.size
     cfg.pipeline.min_train_frames = min(50, max(args.frames - 2, 1))
-    cfg.render.use_pallas = "always" if backend == "tpu" else "never"
     cfg.train.iterations = args.iters
     pipe = Pipeline(cfg, work / "wd")
     pipe.model = case["model"]
 
     meta = {
         "soak": True, "resolution": args.size, "iters": args.iters,
-        "n_frames": args.frames, "backend": backend,
+        "n_frames": args.frames, "device": dev.device_kind,
     }
     t0 = time.time()
     ev_path = work / "wd" / "events.jsonl"

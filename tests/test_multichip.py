@@ -148,6 +148,54 @@ def test_gaussian_sharded_rasterize_matches_single():
                                np.asarray(aux2["alpha"]), atol=2e-4)
 
 
+def tied_layers_scene(n_layer=32, seed=0):
+    """Two overlapping layers of gaussians, red in front of blue, whose
+    depths agree to far less than the binning key resolves, plus a few far
+    ones that place a depth-slice edge between the layers on four slices.
+    The blue layer comes first in index order."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-0.1, 0.1, (2 * n_layer + 4, 2))
+    # at 64^2 the key keeps depth to 2^-18 relative: ~7.6e-6 at depth 2.5
+    z = np.concatenate([np.full(n_layer, 2e-6),             # blue, behind
+                        np.full(n_layer, 1e-6),             # red, in front
+                        np.full(4, 4e-6)])                  # sets the span
+    means = np.concatenate([xy, z[:, None]], axis=1).astype(np.float32)
+    n = means.shape[0]
+    rot = np.broadcast_to(np.eye(3, dtype=np.float32), (n, 3, 3)).copy()
+    scales = np.full((n, 3), 0.05, np.float32)
+    opacity = np.full((n,), 0.8, np.float32)
+    colors = np.zeros((n, 3), np.float32)
+    colors[:n_layer, 2] = 1.0
+    colors[n_layer:2 * n_layer, 0] = 1.0
+    colors[2 * n_layer:, 1] = 1.0
+    return means, rot, scales, opacity, colors
+
+
+@pytest.mark.skipif(N_DEV < 4, reason="needs 4+ virtual devices")
+def test_gaussian_sharded_tied_depths_match_one_device():
+    """Depths that tie in the binning key but straddle a depth-slice edge:
+    four slices composite them by depth, so one slice must too, whatever
+    the index order (the 4-vs-1 agreement of the gaussian-sharded path)."""
+    from jax.sharding import Mesh
+    from omfs4d.ops.camera import look_at_camera
+    from omfs4d.parallel.shard import render_gaussian_sharded
+
+    S = 64
+    cam = look_at_camera(eye=(0, 0, -2.5), target=(0, 0, 0), fx=240.0,
+                         width=S, height=S)
+    args = tuple(jnp.asarray(a) for a in tied_layers_scene())
+    imgs = {}
+    for n in (4, 1):
+        mesh = Mesh(np.asarray(jax.devices()[:n]), ("gauss",))
+        img, aux = jax.jit(lambda *a, mesh=mesh: render_gaussian_sharded(
+            *a, cam, S, S, mesh=mesh, max_per_tile=256))(*args)
+        assert int(aux["overflow"]) == 0
+        imgs[n] = np.asarray(img)
+    # red is in front wherever the layers overlap
+    assert imgs[1][..., 0].max() > 0.5
+    np.testing.assert_allclose(imgs[4], imgs[1], atol=1e-5)
+
+
 @pytest.mark.skipif(N_DEV < 4, reason="needs 4+ virtual devices")
 def test_gaussian_sharded_gradients_flow():
     """The depth-sliced sharded renderer is differentiable end-to-end
@@ -531,8 +579,9 @@ def test_2d_data_gauss_sharded_trainer():
 
 @pytest.mark.skipif(N_DEV < 4, reason="needs 4+ virtual devices")
 def test_tile_sharded_pallas_matches_xla():
-    """composite_tile_sharded with the Pallas kernel (per-shard tile slab,
-    global-tile-id base offset) must match the XLA composite."""
+    """composite_tile_sharded with the composite kernel (interpreted; per-
+    shard tile slab, global-tile-id base offset) must match the XLA
+    composite."""
     from jax.sharding import Mesh
     from omfs4d.ops.camera import look_at_camera
     from omfs4d.parallel.shard import rasterize_tile_sharded
@@ -550,7 +599,8 @@ def test_tile_sharded_pallas_matches_xla():
     )(*args)
     img_p, aux_p = jax.jit(
         lambda *a: rasterize_tile_sharded(*a, cam, 64, 64, mesh=mesh,
-                                          max_per_tile=128, use_pallas=True)
+                                          max_per_tile=128, use_pallas=True,
+                                          interpret=True)
     )(*args)
     np.testing.assert_allclose(np.asarray(img_p), np.asarray(img_x),
                                atol=1e-5)
@@ -560,9 +610,9 @@ def test_tile_sharded_pallas_matches_xla():
 
 @pytest.mark.skipif(N_DEV < 4, reason="needs 4+ virtual devices")
 def test_gaussian_sharded_loss_pallas_matches_xla():
-    """avatar_loss_gaussian_sharded(use_pallas=True): loss AND gradients
-    must match the XLA composite path (the Pallas custom VJP rides inside
-    the shard_map transpose)."""
+    """avatar_loss_gaussian_sharded(use_pallas=True, interpreted): loss AND
+    gradients must match the XLA composite path (the kernel's custom VJP
+    rides inside the shard_map transpose)."""
     from jax.sharding import Mesh
     from omfs4d.core.config import TrainConfig
     from omfs4d.models.assets import synthetic_flame_asset
@@ -590,7 +640,8 @@ def test_gaussian_sharded_loss_pallas_matches_xla():
             gg = with_floats(g, fp)
             return avatar_loss_gaussian_sharded(
                 gg, verts, model.faces, cam, gt, mesh=mesh,
-                max_per_tile=256, use_pallas=use_pallas)
+                max_per_tile=256, use_pallas=use_pallas,
+                interpret=use_pallas)
         return loss
 
     l_x, g_x = jax.jit(jax.value_and_grad(make_loss(False)))(float_fields(g))

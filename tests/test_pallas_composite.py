@@ -1,4 +1,7 @@
-"""Pallas compositing kernel vs the pure-JAX reference (interpret mode on CPU)."""
+"""Composite kernel (Pallas, Triton route) vs the pure-JAX reference.
+
+On the CPU the kernel runs in the Pallas interpreter; the `gpu`-marked
+test at the end compiles it for the card."""
 
 import jax
 import jax.numpy as jnp
@@ -6,9 +9,14 @@ import numpy as np
 import pytest
 
 from omfs4d.ops.camera import look_at_camera, project_gaussians
-from omfs4d.render.rasterize import bin_gaussians, composite_reference
-from omfs4d.render.pallas_kernels import composite_pallas
-from tests.test_rasterize import random_scene
+from omfs4d.render.rasterize import (_tile_pixel_centers, bin_gaussians,
+                                     composite_reference, composite_tiles_xla)
+from omfs4d.render import pallas_kernels as pk
+from test_rasterize import random_scene
+
+
+def composite_pallas(*args, **kw):
+    return pk.composite_pallas(*args, interpret=True, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -76,42 +84,54 @@ def test_gradcheck_finite_difference(scene):
         assert abs(fd - g[i]) < 2e-2 * max(abs(fd), 1.0), (i, fd, g[i])
 
 
-def test_bf16_matmul_path_close_to_f32(scene, monkeypatch):
-    """The TPU default runs the triangular matmuls with bf16 operands
-    (f32 accumulation); forced on under interpret mode it must stay within
-    bf16 tolerance of the f32 reference (fwd + grads).  Guards the default
-    flip (pallas_kernels._bf16_matmul)."""
-    from omfs4d.render import pallas_kernels as pk
+@pytest.mark.parametrize("counts_case", ["empty", "one", "full", "ragged"])
+def test_variable_counts_match_reference(counts_case):
+    """Tile counts the chunked loop must handle: an empty list, a single
+    entry, a full list and a count that is no multiple of either chunk."""
+    K = 40
+    assert K % pk.FWD_CHUNK and K % pk.BWD_CHUNK
+    counts = {"empty": [0, 0], "one": [1, 0], "full": [K, K],
+              "ragged": [K - 3, 17]}[counts_case]
+    rng = np.random.default_rng(11)
+    N = 96                          # half over each of two 16x16 tiles
+    uv = rng.uniform(0, 16, (N, 2))
+    uv[N // 2:, 0] += 16.0
+    uv = jnp.asarray(uv, jnp.float32)
+    a = rng.uniform(0.01, 0.05, N)
+    conic = jnp.asarray(np.stack([a, 0.1 * a, a], 1), jnp.float32)
+    cols = jnp.asarray(rng.uniform(0, 1, (N, 3)), jnp.float32)
+    opac = jnp.asarray(rng.uniform(0.3, 0.95, N), jnp.float32)
+    lists = jnp.asarray(np.stack([rng.permutation(N // 2)[:K],
+                                  N // 2 + rng.permutation(N // 2)[:K]]),
+                        jnp.int32)
+    counts = jnp.asarray(counts, jnp.int32)
+    pix = _tile_pixel_centers(2, 1, 16)
 
-    proj, binning, opacity, colors = scene
-    img_f, alpha_f = composite_pallas(proj["uv"], proj["conic"], colors,
-                                      opacity, binning, 48, 32, tile=16)
-    monkeypatch.setattr(pk, "_BF16_ENV", "1")
-    assert pk._bf16_matmul()
-    img_b, alpha_b = composite_pallas(proj["uv"], proj["conic"], colors,
-                                      opacity, binning, 48, 32, tile=16)
-    # bf16 has ~8 mantissa bits: per-term relative error ~4e-3
-    np.testing.assert_allclose(np.asarray(img_b), np.asarray(img_f),
-                               atol=2e-2, rtol=2e-2)
-    np.testing.assert_allclose(np.asarray(alpha_b), np.asarray(alpha_f),
-                               atol=2e-2, rtol=2e-2)
+    def run(fn):
+        def loss(*p):
+            col, alp = fn(*p)
+            return jnp.sum(col * jnp.linspace(0.2, 1.0, 3)) + jnp.sum(alp ** 2)
+        return fn(uv, conic, cols, opac), jax.grad(
+            loss, argnums=(0, 1, 2, 3))(uv, conic, cols, opac)
 
-    def loss(opac):
-        img, _ = composite_pallas(proj["uv"], proj["conic"], colors, opac,
-                                  binning, 48, 32, tile=16)
-        return jnp.sum(img ** 2)
-
-    g_b = np.asarray(jax.grad(loss)(opacity))
-    monkeypatch.setattr(pk, "_BF16_ENV", "0")
-    g_f = np.asarray(jax.grad(loss)(opacity))
-    scale = max(np.abs(g_f).max(), 1e-6)
-    np.testing.assert_allclose(g_b, g_f, atol=3e-2 * scale, rtol=3e-2)
+    (col_k, alp_k), g_k = run(lambda *p: pk.composite_lists_pallas(
+        *p, lists, counts, 16, 2, interpret=True))
+    (col_r, alp_r), g_r = run(lambda *p: composite_tiles_xla(
+        *p, lists, counts, pix))
+    np.testing.assert_allclose(np.asarray(col_k), np.asarray(col_r), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(alp_k), np.asarray(alp_r), atol=1e-5)
+    for a, b in zip(g_k, g_r):
+        a, b = np.asarray(a), np.asarray(b)
+        scale = max(np.abs(b).max(), 1e-6)
+        np.testing.assert_allclose(a, b, atol=2e-4 * scale, rtol=2e-3)
+    if counts_case == "empty":
+        assert not np.asarray(col_k).any() and not np.asarray(alp_k).any()
 
 
 @pytest.mark.slow
 def test_two_level_k_paths_match_reference():
-    """Mixed occupancy: dense tile (>128 entries, big-K path) + sparse tiles
-    (small-K fast path) must both match the reference exactly."""
+    """Mixed occupancy: a dense tile (>128 entries, many loop chunks) and
+    sparse tiles (one chunk) must both match the reference."""
     cam = look_at_camera(eye=(0, 0, -2.5), target=(0, 0, 0), fx=150.0,
                          width=48, height=32)
     rng = np.random.default_rng(3)
@@ -130,8 +150,8 @@ def test_two_level_k_paths_match_reference():
                              jnp.asarray(scales))
     binning = bin_gaussians(proj, jnp.asarray(opacity), 48, 32,
                             tile=16, max_per_tile=512)
-    assert int(binning.tile_counts.max()) > 128     # exercises the big path
-    assert int((binning.tile_counts < 128).sum()) > 0   # and the small path
+    assert int(binning.tile_counts.max()) > 128     # a long list
+    assert int((binning.tile_counts < 128).sum()) > 0   # and short ones
 
     img_p, alpha_p = composite_pallas(proj["uv"], proj["conic"],
                                       jnp.asarray(colors), jnp.asarray(opacity),
@@ -155,3 +175,33 @@ def test_two_level_k_paths_match_reference():
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    atol=3e-4 * scale, rtol=3e-3)
 
+
+
+def test_kernel_needs_gpu_or_explicit_interpret(scene):
+    """Off a GPU the kernel never falls back to the interpreter silently,
+    and `use_pallas=always` refuses to run."""
+    from omfs4d.render.rasterize import use_composite_kernel
+
+    proj, binning, opacity, colors = scene
+    with pytest.raises(RuntimeError, match="GPU"):
+        pk.composite_pallas(proj["uv"], proj["conic"], colors, opacity,
+                            binning, 48, 32, tile=16)
+    with pytest.raises(RuntimeError, match="GPU"):
+        use_composite_kernel("always")
+    assert use_composite_kernel("auto") is False
+    assert use_composite_kernel("never") is False
+    with pytest.raises(ValueError):
+        use_composite_kernel("sometimes")
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_reference_on_gpu(gpu_device):
+    """The Triton-compiled kernel's forward and VJP against the float32
+    reference at 256^2 on the full-width asset (chip_smoke.py's phase 2
+    runs the same check at 512^2)."""
+    import chip_smoke
+    from omfs4d.train.scene import build_train_scene
+
+    _, cam, trainer, state, data = build_train_scene(
+        size=256, capacity=32768, n_alive=16384)
+    chip_smoke.phase_parity(trainer, state, data, cam, seed=0)

@@ -84,12 +84,12 @@ def test_surgery_actually_changes_pixels(synth):
     r0 = pipe.render_surgery(model_dir, data_dir, root / "p0.mp4",
                              lefort_mm=0.0, bsso_mm=0.0,
                              keep_modified_dataset=False)
-    import cv2
-    f0 = cv2.imread(str(sorted(Path(r0["renders_dir"]).glob("*.png"))[0]))
+    from omfs4d.io.video import read_image
+    f0 = read_image(sorted(Path(r0["renders_dir"]).glob("*.png"))[0])
 
     r1 = pipe.render_surgery(model_dir, data_dir, root / "p1.mp4",
                              lefort_mm=0.0, bsso_mm=80.0)
-    f1 = cv2.imread(str(sorted(Path(r1["renders_dir"]).glob("*.png"))[0]))
+    f1 = read_image(sorted(Path(r1["renders_dir"]).glob("*.png"))[0])
     diff = np.abs(f0.astype(np.float32) - f1.astype(np.float32)).mean()
     assert diff > 0.05, diff
 

@@ -1,4 +1,4 @@
-"""Rasterizer correctness: tiled TPU design vs brute-force per-pixel reference."""
+"""Rasterizer correctness: tiled design vs brute-force per-pixel reference."""
 
 import jax
 import jax.numpy as jnp
@@ -155,6 +155,41 @@ class TestRasterize:
                                    atol=1e-6)
         np.testing.assert_allclose(np.asarray(alpha_t), np.asarray(alpha_u),
                                    atol=1e-6)
+
+    @pytest.mark.parametrize("two_class_min_n", [1, 4096])
+    def test_exact_order_sorts_by_depth_then_index(self, cam, two_class_min_n):
+        """`exact_order` keeps each tile's entries of the default binning
+        and orders them by full depth, then index, even where the depths
+        tie in the default key; reversing the input does not change it."""
+        means, rot, scales, opacity, colors = random_scene(200, seed=7)
+        means[:100, 2] = 0.1                 # exact ties
+        means[100:150, 2] = 0.1 + 1e-5       # ties only in the default key
+        scales[:4] = 0.4
+        op = jnp.asarray(opacity)
+
+        def lists(perm, exact):
+            proj = project_gaussians(cam, jnp.asarray(means[perm]),
+                                     jnp.asarray(rot[perm]),
+                                     jnp.asarray(scales[perm]))
+            b = bin_gaussians(proj, op[perm], 64, 64, tile=16,
+                              max_per_tile=256, max_tiles_per_gaussian=16,
+                              two_class_min_n=two_class_min_n,
+                              exact_order=exact)
+            assert int(b.overflow) == 0
+            ids = perm[np.asarray(b.tile_lists)]
+            return [row[:c] for row, c in zip(ids, np.asarray(b.tile_counts))], proj
+
+        ident = np.arange(200)
+        default, proj = lists(ident, False)
+        exact, _ = lists(ident, True)
+        reverse, _ = lists(ident[::-1], True)
+        depth = np.asarray(proj["depth"])
+        for d_row, e_row, r_row in zip(default, exact, reverse):
+            assert sorted(d_row) == sorted(e_row)
+            assert list(e_row) == sorted(e_row, key=lambda i: (depth[i], i))
+            np.testing.assert_array_equal(
+                np.asarray([depth[i] for i in r_row]),
+                np.asarray([depth[i] for i in e_row]))
 
     def test_two_class_covers_large_gaussian_small_budget(self, cam):
         """A big gaussian must get the LARGE window under two-class binning

@@ -722,9 +722,9 @@ def test_sep_blur_matches_band_matrix():
 
 def test_dssim_bounded_on_smooth_images():
     """D-SSIM must stay in [0, 1]: the windowed variance E[x^2] - mu^2 is
-    clamped at 0 (on TPU, matmul-formulation bf16 rounding once drove it
+    clamped at 0 (a bf16 matmul-formulation blur once drove it
     negative on smooth regions, exploding SSIM and destabilizing training;
-    the VPU shifted-FMA blur is native f32 but the clamp stays)."""
+    the shifted-FMA blur is native f32 but the clamp stays)."""
     from omfs4d.train.losses import dssim_loss, ssim
     rng = np.random.default_rng(0)
     flat = jnp.full((96, 96, 3), 0.73, jnp.float32)
